@@ -1,0 +1,128 @@
+"""Typed configuration of the serving path.
+
+A copy of the dataclasses in the JAX package's ``core/config.py`` that the port's main
+path reads, with the same defaults: camera 640x480, the ``yolact_mnv2_fpn``
+model at a 256x320 input in bfloat16, the fusion constants of the reference
+shaders and the device planner's limits.  Fields of features the port does
+not run yet (int8, tracking, training, host planners) arrive with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """RGB-D camera geometry (RealSense D435): 640x480, 87x58 degree FOV,
+    4 m depth clamp."""
+
+    width: int = 640
+    height: int = 480
+    x_fov: float = 1.51843644924  # 87 deg, radians
+    y_fov: float = 1.01229096616  # 58 deg, radians
+    max_depth_mm: float = 4000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """YOLACT family configuration (MobileNetV2 + FPN P3-P7 + ProtoNet,
+    shared prediction head, semantic head)."""
+
+    name: str = "yolact_mnv2_fpn"
+    backbone: str = "mobilenetv2"
+    input_size: tuple[int, int] = (256, 320)  # (H, W)
+    num_classes: int = 81  # semantic head width
+    det_num_classes: int = 4  # 0 bg, 1 red robot, 2 blue robot, 3 ball
+    fpn_channels: int = 128
+    fpn_levels: int = 5  # P3..P7
+    num_prototypes: int = 32
+    proto_channels: int = 128
+    head_channels: int = 128
+    anchor_aspect_ratios: tuple[float, ...] = (1.0, 0.5, 2.0)
+    anchor_scales: tuple[float, ...] = (24.0, 48.0, 96.0, 192.0, 384.0)
+    anchor_scale_mults: tuple[float, ...] = (1.0, 2 ** (1 / 3), 2 ** (2 / 3))
+    width_mult: float = 1.0
+    dtype: str = "bfloat16"  # compute dtype of the conv stack
+    max_detections: int = 32
+    score_threshold: float = 0.3
+    nms_iou_threshold: float = 0.5
+    nms_top_k: int = 64
+    mask_threshold: float = 0.5
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.anchor_aspect_ratios) * len(self.anchor_scale_mults)
+
+    @property
+    def strides(self) -> tuple[int, ...]:
+        return tuple(8 * (2**i) for i in range(self.fpn_levels))
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometryConfig:
+    """Depth to birdseye occupancy fusion constants (shaders/pt_cloud.comp)."""
+
+    bot_avoidance_const: float = 100.0
+    bot_norm_const: int = 20  # robot bump radius, px
+    terrain_norm_const: int = 10  # terrain bump radius, px
+    bump_err: float = 0.1
+    max_balls: int = 100
+    # Terrain dilation as a hand-written kernel.  Not ported yet: True raises.
+    pallas_bump: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerConfig:
+    """Multi-source shortest-path planner; the port serves the device
+    planner (Bellman-Ford to a fixpoint, then the path walk)."""
+
+    max_seed_balls: int = 3
+    start_offset: int = 240  # start column = W - start_offset
+    tpu_max_iters: int = 2048  # relaxation sweep cap
+    max_path_steps: int = 2048  # path-walk step cap
+    min_ball_pixels: float = 3.0
+    # False: unsigned angle between segments (reference parity);
+    # True: signed turn from the carried heading.
+    signed_turns: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """TCP control plane (plaintext NewPath/GetPath on loopback)."""
+
+    host: str = "127.0.0.1"
+    port: int = 8080
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level configuration of the frame-to-path pipeline."""
+
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    geometry: GeometryConfig = dataclasses.field(default_factory=GeometryConfig)
+    planner: PlannerConfig = dataclasses.field(default_factory=PlannerConfig)
+    server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def validate(cfg: PipelineConfig) -> list[str]:
+    """Human-readable config problems (empty = valid)."""
+    problems = []
+    h, w = cfg.model.input_size
+    if h % 8 or w % 8:
+        problems.append(f"model.input_size {cfg.model.input_size} not divisible by 8")
+    if cfg.model.fpn_levels != len(cfg.model.anchor_scales):
+        problems.append("anchor_scales must have one entry per FPN level")
+    if cfg.model.backbone != "mobilenetv2":
+        problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
+    if cfg.geometry.pallas_bump:
+        problems.append("geometry.pallas_bump: the dilation kernel is not ported yet")
+    if cfg.planner.max_seed_balls < 1:
+        problems.append("planner.max_seed_balls must be >= 1")
+    if cfg.planner.start_offset < 1:
+        problems.append("planner.start_offset must be >= 1 (column w-offset)")
+    return problems

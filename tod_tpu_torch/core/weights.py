@@ -1,0 +1,106 @@
+"""Carry the Flax checkpoint tree across to the port's state dict.
+
+The input is a flat dict of numpy arrays keyed by the Flax tree path
+(``params/...`` and ``batch_stats/...``), the tree of the pinned checkpoint
+``checkpoints/yolact_dr``.  Each Conv->BatchNorm pair is folded as
+the JAX package's ``models/prepare.py::fold_batchnorm`` folds it (eps 1e-5, in float64,
+stored as float32): the kernel absorbs ``gamma / sqrt(var + eps)`` and the BN
+becomes the conv's bias ``beta - mean * gamma / sqrt(var + eps)``.  Kernels go
+from HWIO to OIHW; a depthwise kernel ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)``
+by the same transpose.  Every leaf must be consumed and every state entry
+filled with the right shape, or the carry-across raises.
+
+``load_pinned`` reads ``tod_tpu_torch/weights/yolact_dr.npz``: the same tree,
+written once from the JAX checkpoint and committed, so that the port needs
+neither orbax nor msgpack.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+PINNED = pathlib.Path(__file__).resolve().parents[1] / "weights" / "yolact_dr.npz"
+BN_EPS = 1e-5
+
+
+def carry_across(tree: Mapping[str, np.ndarray],
+                 model: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flat Flax tree -> state dict of float32 CPU tensors.
+
+    With ``model`` given, the result must match its state dict key for key
+    and shape for shape.
+    """
+    used: set[str] = set()
+
+    def take(key: str) -> np.ndarray:
+        if key not in tree:
+            raise KeyError(f"checkpoint leaf {key!r} is missing")
+        used.add(key)
+        return np.asarray(tree[key])
+
+    state: dict[str, torch.Tensor] = {}
+    kernels = sorted(k for k in tree if k.startswith("params/") and k.endswith("/kernel"))
+    for key in kernels:
+        site = key[len("params/") : -len("/kernel")]
+        kernel = take(key)
+        if kernel.ndim != 4:
+            raise ValueError(f"{key}: expected an HWIO conv kernel, got shape {kernel.shape}")
+        parent, last = site.rpartition("/")[::2]
+        if last == "Conv_0" and f"params/{parent}/BatchNorm_0/scale" in tree:
+            bn = f"params/{parent}/BatchNorm_0/"
+            st = f"batch_stats/{parent}/BatchNorm_0/"
+            gamma = take(bn + "scale").astype(np.float64)
+            beta = take(bn + "bias").astype(np.float64)
+            mean = take(st + "mean").astype(np.float64)
+            var = take(st + "var").astype(np.float64)
+            g = gamma / np.sqrt(var + BN_EPS)
+            kernel = (kernel.astype(np.float64) * g).astype(np.float32)
+            bias = (beta - mean * g).astype(np.float32)
+        else:
+            bias = take(f"params/{site}/bias").astype(np.float32)
+        name = site.replace("/", ".")
+        weight = np.ascontiguousarray(kernel.astype(np.float32).transpose(3, 2, 0, 1))
+        state[name + ".weight"] = torch.from_numpy(weight)
+        state[name + ".bias"] = torch.from_numpy(np.ascontiguousarray(bias))
+
+    unused = sorted(set(tree) - used)
+    if unused:
+        raise ValueError(f"{len(unused)} checkpoint leaves not consumed, e.g. {unused[:3]}")
+    if model is not None:
+        check_state(model, state)
+    return state
+
+
+def check_state(model: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """Raise unless ``state`` fills ``model``'s state dict exactly."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise ValueError(f"state dict mismatch: missing {missing[:3]}, extra {extra[:3]}")
+    bad = [(k, tuple(state[k].shape), s) for k, s in want.items() if tuple(state[k].shape) != s]
+    if bad:
+        raise ValueError(f"state dict shape mismatch (key, got, want): {bad[:3]}")
+
+
+def read_tree(path: str | pathlib.Path = PINNED) -> dict[str, np.ndarray]:
+    """The flat Flax tree from an ``.npz`` written by ``np.savez``."""
+    path = pathlib.Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"weight file {path} not found")
+    with np.load(path, allow_pickle=False) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def load_pinned(path: str | pathlib.Path = PINNED, cfg=None) -> dict[str, torch.Tensor]:
+    """The pinned ``yolact_dr`` weights as the port's state dict (CPU, f32),
+    checked against the default model."""
+    from tod_tpu_torch.core.config import ModelConfig
+    from tod_tpu_torch.models.yolact import Yolact
+
+    return carry_across(read_tree(path), Yolact(cfg or ModelConfig()))

@@ -1,0 +1,107 @@
+"""Build ``tod_tpu_torch/csrc/*.cu`` with nvcc and load them with ctypes.
+
+Each source becomes one shared library with a plain C interface, compiled for
+Hopper (``sm_90a``) into ``build/tod_tpu_torch/`` at the repository root.  The
+file name carries a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  A build writes to a temporary
+name and renames it into place, so concurrent builders need no lock file.
+Several sources build in parallel, one nvcc process each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Iterable, Mapping
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tod_tpu_torch"
+# No --use_fast_math: the crop compares and divisions must round as torch's do.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    nvcc = pathlib.Path(home) / "bin" / "nvcc"
+    if nvcc.is_file():
+        return str(nvcc)
+    raise RuntimeError(
+        f"nvcc not found on PATH or under {home}/bin (set CUDA_HOME): the CUDA "
+        "toolkit is needed to build the kernels in tod_tpu_torch/csrc"
+    )
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> dict[str, str]:
+    """Compile every named source whose library is missing, all at once.
+
+    Returns nvcc's output (ptxas register and shared-memory report) by name;
+    raises with that output if a compile fails.
+    """
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    logs, failed = {}, []
+    for name, proc, tmp, out in jobs:
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (exit {proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: Mapping[str, tuple[list, object]]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    ``signatures`` maps each C entry point to its ``(argtypes, restype)``;
+    they are set once, when the library is first loaded."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            lib.tod_error_string.argtypes = [ctypes.c_int]
+            lib.tod_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.tod_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

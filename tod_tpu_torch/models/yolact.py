@@ -1,0 +1,116 @@
+"""The YOLACT graph and its detection cleanup (counterpart of
+the JAX package's ``models/yolact.py``).
+
+``Yolact.forward`` takes NHWC images, as the JAX model does, and returns raw
+head outputs; :func:`detect` turns them into fixed-shape ``Detections``: box
+decode, softmax, Fast-NMS, mask assembly with the box crop (kernel K1), and
+the per-pixel class and dense ball-id maps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from tod_tpu_torch.core.config import ModelConfig
+from tod_tpu_torch.core.types import Detections
+from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
+from tod_tpu_torch.models.fpn import FPN
+from tod_tpu_torch.models.heads import PredictionHead, SemanticHead
+from tod_tpu_torch.models.mobilenetv2 import MobileNetV2
+from tod_tpu_torch.models.protonet import ProtoNet
+from tod_tpu_torch.ops.anchors import decode_boxes
+from tod_tpu_torch.ops.masks import masks_to_class_map
+from tod_tpu_torch.ops.nms import fast_nms
+
+
+@dataclasses.dataclass
+class YolactOutputs:
+    """loc (B, A, 4) f32, conf (B, A, C) f32, coeff (B, A, K) raw logits in
+    the compute dtype, prototypes (B, H/4, W/4, K) f32, sem_logits
+    (B, H/8, W/8, C) f32."""
+
+    loc: torch.Tensor
+    conf: torch.Tensor
+    coeff: torch.Tensor
+    prototypes: torch.Tensor
+    sem_logits: torch.Tensor
+
+
+class Yolact(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.backbone != "mobilenetv2":
+            raise ValueError(f"backbone {cfg.backbone!r} is not ported yet")
+        self.cfg = cfg
+        self.MobileNetV2_0 = MobileNetV2(cfg.width_mult)
+        self.FPN_0 = FPN(self.MobileNetV2_0.out_channels, cfg.fpn_channels, cfg.fpn_levels)
+        self.ProtoNet_0 = ProtoNet(cfg.fpn_channels, cfg.num_prototypes, cfg.proto_channels)
+        self.PredictionHead_0 = PredictionHead(
+            cfg.fpn_channels, cfg.det_num_classes, cfg.num_anchors,
+            cfg.num_prototypes, cfg.head_channels,
+        )
+        self.SemanticHead_0 = SemanticHead(cfg.fpn_channels, cfg.num_classes)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.PredictionHead_0.tower.weight.dtype
+
+    def forward(self, x: torch.Tensor) -> YolactOutputs:
+        """x: (B, H, W, 3) normalised images."""
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        pyramid = self.FPN_0(*self.MobileNetV2_0(x))
+        prototypes = self.ProtoNet_0(pyramid[0]).permute(0, 2, 3, 1)
+        outs = [self.PredictionHead_0(p) for p in pyramid]
+        return YolactOutputs(
+            loc=torch.cat([o[0] for o in outs], dim=1).float(),
+            conf=torch.cat([o[1] for o in outs], dim=1).float(),
+            coeff=torch.cat([o[2] for o in outs], dim=1),
+            prototypes=prototypes,
+            sem_logits=self.SemanticHead_0(pyramid[0]),
+        )
+
+
+def _detect_sample(loc, conf_logits, coeff_all, protos, cfg: ModelConfig,
+                   anchors: torch.Tensor, out_hw: tuple[int, int]) -> Detections:
+    """Per-sample cleanup: loc (A, 4), conf_logits (A, C), coeff_all (A, K),
+    protos (Hm, Wm, K)."""
+    conf = torch.softmax(conf_logits, dim=-1)
+    boxes_all = decode_boxes(loc, anchors)
+    boxes, scores, classes, keep_idx, valid = fast_nms(
+        boxes_all, conf,
+        iou_threshold=cfg.nms_iou_threshold,
+        top_k_per_class=cfg.nms_top_k,
+        max_detections=cfg.max_detections,
+        score_threshold=cfg.score_threshold,
+    )
+    # gather first, tanh after: only the kept anchors need the nonlinearity
+    coeffs = torch.tanh(coeff_all[keep_idx].float())
+    masks = assemble_crop_masks(
+        protos[None].float().contiguous(), coeffs[None].contiguous(), boxes[None].contiguous()
+    )[0]
+    masks = masks * valid[:, None, None]
+    class_map, id_map = masks_to_class_map(
+        masks, classes, valid, out_hw, threshold=cfg.mask_threshold
+    )
+    # dense ball ids over the valid ball slots; every other pixel gets -1
+    is_ball_slot = (classes == 3) & valid
+    ball_rank = torch.cumsum(is_ball_slot.to(torch.int32), dim=0) - 1
+    slot_ids = torch.where(is_ball_slot, ball_rank, -1).to(torch.int32)
+    padded = torch.cat([slot_ids, slot_ids.new_full((1,), -1)])
+    ball_ids = padded[torch.where(id_map >= 0, id_map, slot_ids.shape[0]).long()]
+    return Detections(
+        boxes=boxes, scores=scores, classes=classes, masks=masks, valid=valid,
+        class_map=class_map, id_map=ball_ids,
+    )
+
+
+def detect(outputs: YolactOutputs, cfg: ModelConfig, anchors: torch.Tensor,
+           out_hw: tuple[int, int] | None = None) -> Detections:
+    """Head outputs -> Detections for batch element 0."""
+    return _detect_sample(
+        outputs.loc[0], outputs.conf[0], outputs.coeff[0], outputs.prototypes[0],
+        cfg, anchors, out_hw or cfg.input_size,
+    )

@@ -1,0 +1,175 @@
+"""TCP path server: the byte-compatible NewPath/GetPath control plane
+(counterpart of the JAX package's ``serve/server.py``).
+
+Wire protocol:
+
+- the client sends exactly 7 ASCII bytes: ``b"NewPath"`` or ``b"GetPath"``
+- ``NewPath`` -> the stored path resets to empty (stamped now), reply ``b"OK"``
+- ``GetPath`` -> the serialized path: 8-byte big-endian unix seconds, then two
+  big-endian f32s per direction
+- ``GetPth2`` -> the same payload prefixed with its u32 big-endian length
+- ``GetStat`` -> length-prefixed JSON of counters and path staleness
+- anything else -> logged, connection dropped
+
+Connections are served concurrently; commands may be pipelined.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import threading
+import time
+
+from tod_tpu_torch.core.config import ServerConfig
+from tod_tpu_torch.core.types import Path
+
+log = logging.getLogger(__name__)
+
+
+class PathStore:
+    """Thread-safe holder of the current Path: the planner swaps paths in,
+    the server reads them."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._path = Path(created=time.time(), directions=[])
+
+    def get(self) -> Path:
+        with self._lock:
+            return self._path
+
+    def set(self, path: Path) -> None:
+        with self._lock:
+            self._path = path
+
+    def reset(self) -> Path:
+        fresh = Path(created=time.time(), directions=[])
+        self.set(fresh)
+        return fresh
+
+
+class PathServer:
+    def __init__(self, store: PathStore, cfg: ServerConfig | None = None) -> None:
+        self.store = store
+        self.cfg = cfg or ServerConfig()
+        self._started = time.time()
+        self.counters = {
+            "NewPath": 0, "GetPath": 0, "GetPth2": 0, "GetStat": 0, "errors": 0,
+        }
+        self._server: asyncio.AbstractServer | None = None
+        self._writers: set[asyncio.StreamWriter] = set()
+
+    async def _reply(self, writer: asyncio.StreamWriter, payload: bytes) -> None:
+        writer.write(payload)
+        await writer.drain()
+
+    async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        peer = writer.get_extra_info("peername")
+        self._writers.add(writer)
+        try:
+            while True:
+                try:
+                    buf = await reader.readexactly(7)
+                except asyncio.IncompleteReadError:
+                    return
+                if buf == b"NewPath":
+                    self.counters["NewPath"] += 1
+                    self.store.reset()
+                    await self._reply(writer, b"OK")
+                elif buf == b"GetPath":
+                    self.counters["GetPath"] += 1
+                    await self._reply(writer, self.store.get().serialize())
+                elif buf in (b"GetPth2", b"GetStat"):
+                    cmd = buf.decode()
+                    self.counters[cmd] += 1
+                    if cmd == "GetPth2":
+                        payload = self.store.get().serialize()
+                    else:
+                        payload = json.dumps(self.stats()).encode()
+                    await self._reply(writer, len(payload).to_bytes(4, "big") + payload)
+                else:
+                    self.counters["errors"] += 1
+                    log.error("RequestError(%r is not a request) from %s", buf, peer)
+                    return
+        except (ConnectionResetError, BrokenPipeError) as e:
+            log.error("failed to read/write socket; err = %r", e)
+        finally:
+            self._writers.discard(writer)
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError, OSError):
+                pass
+
+    def stats(self) -> dict:
+        path = self.store.get()
+        return {
+            "uptime_s": time.time() - self._started,
+            "requests": dict(self.counters),
+            "path_age_s": time.time() - path.created,
+            "path_len": len(path.directions),
+            "path_truncated": bool(path.truncated),
+        }
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._handle, self.cfg.host, self.cfg.port)
+
+    @property
+    def port(self) -> int:
+        if self._server is None:
+            raise RuntimeError("server not started")
+        return self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            for w in list(self._writers):
+                w.close()
+            await self._server.wait_closed()
+            self._server = None
+
+
+def run_in_thread(store: PathStore, cfg: ServerConfig | None = None):
+    """Start the server on a daemon thread with its own event loop; returns
+    ``(thread, server)`` or raises if it fails to start within 10 s."""
+    server = PathServer(store, cfg)
+    ready = threading.Event()
+    holder: dict = {}
+
+    def _run():
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+        holder["loop"] = loop
+        try:
+            loop.run_until_complete(server.start())
+        except BaseException as e:  # handed to the caller below
+            holder["error"] = e
+            loop.close()
+            return
+        finally:
+            ready.set()
+        try:
+            loop.run_forever()
+        finally:
+            loop.run_until_complete(server.stop())
+            loop.close()
+
+    t = threading.Thread(target=_run, daemon=True, name="tod-path-server")
+    t.start()
+    if not ready.wait(timeout=10):
+        raise RuntimeError("path server did not start within 10s")
+    if "error" in holder:
+        raise RuntimeError(f"path server failed to start: {holder['error']!r}") from holder["error"]
+    server._loop = holder["loop"]  # type: ignore[attr-defined]
+    return t, server
+
+
+def stop_thread_server(server: PathServer) -> None:
+    loop = getattr(server, "_loop", None)
+    if loop is not None and not loop.is_closed():
+        try:
+            loop.call_soon_threadsafe(loop.stop)
+        except RuntimeError:
+            pass  # the loop closed between the check and the call
