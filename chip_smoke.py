@@ -6,20 +6,31 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each printed as it ends:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of every kernel in ``tod_tpu_torch/csrc`` with nvcc;
-3. each kernel (mask assembly, connection weights, path walk) against its
-   plain torch version on the card, at the main path's shapes and a ragged
-   shape, and its device time (CUDA events, median of 50 calls after a
-   warm-up, enqueued behind a sleep kernel) beside the plain version's and a
-   library call's;
+2. the build of every kernel in ``tod_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once;
+3. each kernel (mask assembly, connection weights, path walk, the terrain
+   dilation K3/K4, the stochastic quantizer K5) against its plain torch
+   version on the card, at the main path's shapes and a ragged shape, and its
+   device time (CUDA events, median of 50 calls after a warm-up, enqueued
+   behind a sleep kernel) beside the plain version's and a library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
    configuration, 8 synthetic frames through ``Engine.serve_step_plan``, with
-   every kernel's launch count reset before and read after; then one frame
+   the path's launch counts reset before and read after; then one frame
    under ``torch.profiler`` for the device time of each ``stage/`` range;
 5. a reference check on a small input: each stage on the card against the
-   same stage on the CPU, fed the same inputs;
+   same stage on the CPU, fed the same inputs, and the occupancy map with
+   the terrain kernel (``pallas_bump``) against the CPU's, exactly;
 6. the last plan published on the port's ``PathServer`` and read back with a
-   raw ``GetPath``.
+   raw ``GetPath``;
+7. the streaming loop at the app's configuration (640x480 camera, model at
+   480x640, bf16) with ``pallas_bump``: ``Engine.run_supervised`` over 16
+   frames, a plan every 4th, 2 in flight, with its own launch counts; the
+   fusion stage of one profiled frame with K3 and with the ring loop; then
+   K4 as a library call on the terrain peaks of 4 of those frames;
+8. ``python3 -m tod_tpu_torch.app`` as a subprocess over 16 frames, with
+   one ``GetStat`` while it runs;
+9. weight-only PTQ: the pinned tree quantized with K5 (stochastic, seed 0),
+   dequantized, carried across and served for 4 frames.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -41,6 +52,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 N_FRAMES = 8
+STREAM_FRAMES = 16
 
 
 def log(*args) -> None:
@@ -232,6 +244,187 @@ def check_walk(torch, np, rng, device):
     }
 
 
+def color_class_map(np, rgb):
+    """The synthetic scene's classes by colour, as a perfect detector would
+    label them: 3 ball (yellow), 1 red robot, 2 blue robot, 0 terrain."""
+    cls = np.zeros(rgb.shape[:2], np.uint8)
+    for label, color in ((3, (240, 220, 40)), (1, (220, 40, 40)), (2, (40, 60, 220))):
+        cls[(rgb == color).all(axis=-1)] = label
+    return cls
+
+
+def terrain_peaks(torch, np, depth, cls, cam, geom):
+    """The P-padded terrain peak map that the occupancy map dilates (the
+    input of K3/K4), from a depth map and a class map on one device."""
+    from tod_tpu_torch.geometry.fusion import _scatter_peaks, birdseye_project
+
+    h, w = depth.shape
+    bird_y, _, _ = birdseye_project(depth, cam)
+    rows = torch.arange(h, dtype=torch.float32, device=depth.device)[:, None].expand(h, w)
+    return _scatter_peaks(bird_y, cls == 0, rows, geom.terrain_norm_const)
+
+
+def positive_ring_evaluations(torch, peaks_ext, bump_size, out_shape) -> int:
+    """The (pixel, ring) pairs whose ring maximum is positive: where the
+    dilation evaluates its bump (the work this input needs)."""
+    from tod_tpu_torch.kernels.bump import ring_table
+
+    h, w = out_shape
+    pad = (peaks_ext.shape[0] - h) // 2
+    total = 0
+    for _, disps, _ in ring_table(bump_size):
+        gmax = torch.stack([peaks_ext[pad - dy : pad - dy + h, pad - dx : pad - dx + w]
+                            for dy, dx in disps]).amax(dim=0)
+        total += int((gmax > 0).sum())
+    return total
+
+
+def check_bump(torch, np, rng, device):
+    """K3 and K4 against the plain ring loop, bitwise, at VGA, QVGA and a
+    ragged shape with the app's radius L = 10 (and QVGA at L = 4, whose
+    exponents take torch's sqrt and rsqrt cases), then the strip check."""
+    from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
+    from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips, plain_dilate_peaks
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    def random_peaks(h, w, L, integral):
+        ext = np.zeros((h + 2 * L, w + 2 * L), np.float32)
+        m = rng.random(ext.shape) < 0.03
+        ext[m] = rng.integers(1, h, m.sum()) if integral else rng.uniform(1, 60, m.sum())
+        return torch.from_numpy(ext).to(device)
+
+    geom = GeometryConfig()
+    f = synth_frame_numpy(0, 0, 480, 640)
+    scene = terrain_peaks(torch, np, torch.from_numpy(f.depth.astype(np.int32)).to(device),
+                          torch.from_numpy(color_class_map(np, f.rgb)).to(device),
+                          CameraConfig(), geom)
+    cases = [("VGA terrain", scene, (480, 640), 10),
+             ("VGA", random_peaks(480, 640, 10, True), (480, 640), 10),
+             ("VGA float", random_peaks(480, 640, 10, False), (480, 640), 10),
+             ("QVGA", random_peaks(240, 320, 10, True), (240, 320), 10),
+             ("ragged", random_peaks(37, 53, 10, True), (37, 53), 10),
+             ("QVGA L=4", random_peaks(240, 320, 4, True), (240, 320), 4)]
+    for name, ext, shape, L in cases:
+        want = plain_dilate_peaks(ext, L, geom.bump_err, shape)
+        got4 = dilate_peaks(ext, L, geom.bump_err, shape)
+        diff = int((got4 != want).sum())
+        if shape[0] % 16 == 0:
+            diff += int((dilate_peaks_strips(ext, L, geom.bump_err, shape) != want).sum())
+        torch.cuda.synchronize()
+        log(f"  K3/K4 bump {name} {tuple(ext.shape)}->{shape} L={L}: differing values={diff} "
+            f"(tol exact), positive outputs={int((want > 0).sum())}")
+        if diff:
+            raise AssertionError(f"K3/K4 disagree with the plain ring loop at {name}")
+    try:
+        dilate_peaks_strips(cases[4][1], 10, geom.bump_err, (37, 53))
+    except ValueError as e:
+        log(f"  K3 rejects H % strip_h != 0: ValueError({e})")
+    else:
+        raise AssertionError("K3 accepted H=37 with strip_h=16")
+    ext, shape, L = scene, (480, 640), 10
+    ms, wall = time_ms(lambda: dilate_peaks_strips(ext, L, geom.bump_err, shape), torch)
+    k4_ms, _ = time_ms(lambda: dilate_peaks(ext, L, geom.bump_err, shape), torch)
+    plain_ms, plain_wall = time_ms(lambda: plain_dilate_peaks(ext, L, geom.bump_err, shape), torch)
+    evals = positive_ring_evaluations(torch, ext, L, shape)
+    # each input read once, the output written once; per pixel (2L)^2 maxima,
+    # per positive ring a bump: 2 divisions, a subtraction, a max, a pow, an
+    # addition, a floor and a max
+    n_ops = shape[0] * shape[1] * (2 * L) ** 2 + 8.0 * evals
+    bms, by = bound_ms(4 * (ext.numel() + shape[0] * shape[1]), n_ops)
+    log(f"  K3 times at the VGA terrain peaks {tuple(ext.shape)}: kernel_ms={ms:.5f} "
+        f"(K4 {k4_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bms:.6f} ({by}; {evals} bump "
+        f"evaluations); wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+    common = {"route": "cuda", "source": "tod_tpu_torch/csrc/bump.cu", "max_abs_err": 0.0,
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return [
+        {"name": "bump_strips", "replaces": "tod_tpu/kernels/bump.py:90", "ms": ms, **common},
+        {"name": "bump", "replaces": "tod_tpu/kernels/bump.py:160", "ms": k4_ms, **common},
+    ]
+
+
+def check_k5(torch, np, rng, device):
+    """K5: the deterministic path exactly (card against CPU); the stochastic
+    kernel bitwise against its plain version (on the card and on the CPU) on
+    the pinned tree's largest kernel and a ragged matrix; and the properties
+    of stochastic rounding."""
+    from tod_tpu_torch.core.weights import read_tree
+    from tod_tpu_torch.ops.quantize import (
+        plain_quantize_tensor_stochastic,
+        quantize_tensor,
+        quantize_tensor_pallas,
+    )
+
+    tree = read_tree()
+    key = max((k for k in tree if k.endswith("/kernel")), key=lambda k: tree[k].size)
+    big = tree[key].reshape(-1, tree[key].shape[-1]).astype(np.float32)
+    ragged = rng.normal(0, 0.1, (37, 53)).astype(np.float32)
+    ragged[:, 3] = 0.0
+    for name, x in ((f"{key} {big.shape}", big), (f"ragged {ragged.shape}", ragged)):
+        xc, xd = torch.from_numpy(x), torch.from_numpy(x).to(device)
+        qd, sd = quantize_tensor(xd)
+        qc, sc = quantize_tensor(xc)
+        det = torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
+        q, scale = quantize_tensor_pallas(xd, seed=7)
+        pq, ps = plain_quantize_tensor_stochastic(xd, seed=7)
+        cq, cs = plain_quantize_tensor_stochastic(xc, seed=7)
+        torch.cuda.synchronize()
+        stoch = torch.equal(q, pq) and torch.equal(scale, ps)
+        host = torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cs)
+        r = (xd / scale).double()
+        qf = q.double()
+        props = {
+            "scales exact": torch.equal(scale, sd),
+            "|q - x/s| < 1": bool(((qf - r).abs() < 1).all()),
+            "floor or ceil": bool(((qf == torch.floor(r)) | (qf == torch.ceil(r))).all()),
+            "same seed same q": torch.equal(quantize_tensor_pallas(xd, seed=7)[0], q),
+            "other seed other q": not torch.equal(quantize_tensor_pallas(xd, seed=8)[0], q),
+        }
+        errs = torch.stack([quantize_tensor_pallas(xd, seed=s)[0].double() - r for s in range(64)])
+        errs = errs[:, :, sd[0] > 1e-12]
+        mean, sem = errs.mean().item(), (errs.std() / errs.numel() ** 0.5).item()
+        props["mean error within 3 SE of 0"] = abs(mean) < 3 * sem
+        log(f"  K5 quantize {name}: deterministic card == CPU {det}; stochastic kernel == plain "
+            f"{stoch} (on the CPU too: {host}); {props}; mean error over 64 seeds "
+            f"{mean:.3e} (SE {sem:.3e})")
+        if not (det and stoch and host and all(props.values())):
+            raise AssertionError(f"K5 fails at {name}")
+    xd = torch.from_numpy(big).to(device)
+    n, c = xd.shape
+    ms, wall = time_ms(lambda: quantize_tensor_pallas(xd, seed=7), torch)
+    plain_ms, plain_wall = time_ms(lambda: plain_quantize_tensor_stochastic(xd, seed=7), torch)
+    # x read once, int8 values and f32 scales written once; f32 operations
+    # per element: abs, max, division, addition, floor, two clamps (the
+    # Philox multiplies are integer work the f32 peak does not count)
+    bms, by = bound_ms(4 * n * c + n * c + 4 * c, 7.0 * n * c)
+    log(f"  K5 times at {(n, c)}: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"bound_ms={bms:.6f} ({by}); wall per call: kernel {wall:.4f} ms, plain "
+        f"{plain_wall:.4f} ms")
+    return {
+        "name": "quantize", "route": "cuda", "source": "tod_tpu_torch/csrc/quantize.cu",
+        "replaces": "tod_tpu/ops/quantize.py:43", "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+    }
+
+
+def reset(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def check_plan(np, buf, steps) -> int:
+    """Raise unless ``buf`` is a well-formed plan buffer; returns n_valid."""
+    n = int(buf[0, 0])
+    if buf.shape != (steps + 1, 2) or not np.isfinite(buf).all() or not 0 <= n <= steps:
+        raise AssertionError(f"malformed plan buffer: shape {buf.shape}, n {n}")
+    if np.any(buf[1 + n :] != 0):
+        raise AssertionError("plan rows past n_valid are not zero")
+    return n
+
+
 def main_path(torch, np, counters):
     from tod_tpu_torch.core.config import PipelineConfig
     from tod_tpu_torch.core.types import Path
@@ -254,8 +447,7 @@ def main_path(torch, np, counters):
     eng.serve_step_plan(frames[0])  # warm-up: cuDNN plans, kernel loads
     log(f"  warm-up frame {1e3 * (time.time() - t):.1f} ms")
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     per_frame, sweeps, n_valid = [], [], []
     plan = None
     for packed in frames[1:]:
@@ -264,14 +456,8 @@ def main_path(torch, np, counters):
         buf = plan.cpu().numpy()
         per_frame.append(1e3 * (time.perf_counter() - t))
         sweeps.append(eng.last_sweeps)
-        n_valid.append(int(buf[0, 0]))
-        steps = cfg.planner.max_path_steps
-        n = int(buf[0, 0])
-        if buf.shape != (steps + 1, 2) or not np.isfinite(buf).all() or not 0 <= n <= steps:
-            raise AssertionError(f"malformed plan buffer: shape {buf.shape}, n {n}")
-        if np.any(buf[1 + n :] != 0):
-            raise AssertionError("plan rows past n_valid are not zero")
-    launches = {name: fn.launches for name, fn in counters.items()}
+        n_valid.append(check_plan(np, buf, cfg.planner.max_path_steps))
+    launches = read(counters)
     stage_profile(torch, eng, frames[1], counters)
     log(f"  ms per frame: {[round(x, 2) for x in per_frame]} "
         f"(median {statistics.median(per_frame):.2f})")
@@ -283,7 +469,7 @@ def main_path(torch, np, counters):
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if max(n_valid) == 0:
         raise AssertionError("no frame produced a path to a ball")
-    return Path.from_plan(plan), launches, statistics.median(per_frame)
+    return Path.from_plan(plan), launches, statistics.median(per_frame), eng, frames
 
 
 def stage_profile(torch, eng, packed, kernel_names) -> None:
@@ -394,6 +580,200 @@ def reference_check(torch, np):
             raise AssertionError(f"card and CPU disagree on frame t={t}")
 
 
+def bump_reference_check(torch, np):
+    """The occupancy map with the terrain kernel (``pallas_bump``, 128 rows)
+    on the card against the CPU's, exactly, and against the card's own ring
+    loop; class maps by colour on the synthetic frames."""
+    from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
+    from tod_tpu_torch.geometry.fusion import occupancy_map
+    from tod_tpu_torch.kernels.bump import dilate_peaks_strips
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    cam = CameraConfig(width=160, height=128)
+    k3, ring = GeometryConfig(pallas_bump=True), GeometryConfig()
+    for t in (0, 7):
+        f = synth_frame_numpy(0, t, cam.height, cam.width)
+        depth = torch.from_numpy(f.depth.astype(np.int32))
+        cls = torch.from_numpy(color_class_map(np, f.rgb))
+        before = dilate_peaks_strips.launches
+        card = occupancy_map(depth.cuda(), cls.cuda(), cam, k3)
+        launched = dilate_peaks_strips.launches - before
+        card_ring = occupancy_map(depth.cuda(), cls.cuda(), cam, ring).cpu()
+        host = occupancy_map(depth, cls, cam, k3)
+        card = card.cpu()
+        vs_cpu, vs_ring = int((card != host).sum()), int((card != card_ring).sum())
+        log(f"  pallas_bump occupancy t={t} {tuple(card.shape)}: K3 launches={launched}, "
+            f"heights differing card vs CPU={vs_cpu}, K3 vs the card's ring loop={vs_ring} "
+            f"(tol exact), positive heights={int((host > 0).sum())}")
+        if launched != 1 or vs_cpu or vs_ring:
+            raise AssertionError(f"the pallas_bump occupancy map disagrees on frame t={t}")
+
+
+def fusion_profile(torch, eng, packed) -> tuple[float, float]:
+    """(device ms, host ms) of the ``stage/fusion`` range of one profiled
+    ``serve_step_scene`` call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.serve_step_scene(packed)
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.name == "stage/fusion" and e.device_type == DeviceType.CPU:
+            return round(e.device_time_total / 1e3, 4), round(e.cpu_time_total / 1e3, 3)
+    raise AssertionError("the profiler recorded no stage/fusion range")
+
+
+def streaming(torch, np, state, counters, k4):
+    """The app's configuration with ``pallas_bump``: ``run_supervised`` over
+    16 synthetic frames, a plan every 4th, 2 in flight; then the fusion stage
+    of one frame with K3 and with the ring loop; then K4 as a library call on
+    the terrain peaks of 4 frames, against K3 on the same peaks."""
+    from tod_tpu_torch.core.config import GeometryConfig, ModelConfig, PipelineConfig
+    from tod_tpu_torch.kernels.bump import plain_dilate_peaks
+    from tod_tpu_torch.models.yolact import detect
+    from tod_tpu_torch.ops.preprocess import pack_frame, preprocess_frame, unpack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.server import PathStore
+
+    cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640)),
+                         geometry=GeometryConfig(pallas_bump=True))
+    eng = Engine(cfg, state, device="cuda")
+    log(f"  engine: camera {cfg.camera.width}x{cfg.camera.height}, model input "
+        f"{cfg.model.input_size} {cfg.model.dtype}, pallas_bump={cfg.geometry.pallas_bump}, "
+        f"warm-up {eng.warmup():.2f}s {eng.warmup_breakdown}")
+    store = PathStore()
+    reset(counters)
+    m = eng.run_supervised(lambda: SyntheticSource(cfg.camera, n_frames=STREAM_FRAMES),
+                           n_frames=STREAM_FRAMES, path_store=store, max_restarts=3,
+                           stall_timeout_s=10.0, plan_every=4, max_inflight=2, warmup=False)
+    launches = read(counters)
+    stages = m["stages"]
+    p50 = {k: round(v["p50_ms"], 3) for k, v in stages.items() if v.get("n")}
+    path = store.get()
+    log(f"  {m['n_frames']} frames: fps={m['fps']:.3f}, plans_done={m['plans_done']}, "
+        f"restarts={m['restarts']}, published path {len(path.directions)} directions")
+    log(f"  stage p50 ms: {p50} (frame = batch mean; plan = the planner thread's wait "
+        f"and decode; dispatch_plan / dispatch_scene = the loop thread in each step)")
+    log(f"  launches over {STREAM_FRAMES} frames: {launches}")
+    if m["n_frames"] != STREAM_FRAMES or m["plans_done"] < 4 or not path.directions:
+        raise AssertionError(f"streaming run fell short: {m['n_frames']} frames, "
+                             f"{m['plans_done']} plans, {len(path.directions)} directions")
+    if launches["bump_strips"] != STREAM_FRAMES or min(launches.values()) == 0:
+        raise AssertionError(f"kernels not launched as expected on the streaming path: {launches}")
+
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(cfg.camera, seed=0, n_frames=4).frames()]
+    ring_eng = Engine(cfg.replace(geometry=GeometryConfig()), state, device="cuda")
+    ring_eng.serve_step_scene(frames[0])
+    rows = {}
+    for name, e in (("K3", eng), ("ring loop", ring_eng), ("K3 again", eng),
+                    ("ring loop again", ring_eng)):
+        rows[name] = fusion_profile(torch, e, frames[1])
+    log(f"  stage/fusion of one frame, (device ms, host ms): {rows}")
+
+    cam, geom = cfg.camera, cfg.geometry
+    reset(k4)
+    diffs = []
+    with torch.inference_mode():
+        for packed in frames:
+            rgb, depth = unpack_frame(packed.cuda(), (cam.height, cam.width))
+            dets = detect(eng.model(preprocess_frame(rgb, cfg.model.input_size, eng.dtype)),
+                          cfg.model, eng.anchors, out_hw=(cam.height, cam.width))
+            peaks = terrain_peaks(torch, np, depth, dets.class_map, cam, geom)
+            shape = (cam.height, cam.width)
+            whole = k4["bump"](peaks, geom.terrain_norm_const, geom.bump_err, shape)
+            diffs.append(int((whole != plain_dilate_peaks(peaks, geom.terrain_norm_const,
+                                                          geom.bump_err, shape)).sum()))
+    k4_launches = read(k4)
+    log(f"  K4 on the terrain peaks of {len(frames)} streamed frames: launches {k4_launches}, "
+        f"values differing from the plain ring loop {diffs} (tol exact)")
+    if any(diffs) or k4_launches["bump"] != len(frames):
+        raise AssertionError("K4 disagrees with the ring loop on the streamed frames")
+    return {**launches, **k4_launches}, m
+
+
+def app_subprocess(root) -> None:
+    """``python3 -m tod_tpu_torch.app`` over 16 frames with its defaults,
+    one ``GetStat`` through the port it logs while it runs."""
+    cmd = [sys.executable, "-m", "tod_tpu_torch.app", "--source", "synthetic", "--frames",
+           str(STREAM_FRAMES), "--port", "0", "--metrics-json"]
+    t = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        port, seen = None, []
+        for line in proc.stderr:
+            seen.append(line)
+            if "path server on" in line:
+                port = int(line.rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError("the app never logged its port:\n" + "".join(seen[-20:]))
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+            sock.sendall(b"GetStat")
+            data = b""
+            while len(data) < 4 or len(data) < 4 + int.from_bytes(data[:4], "big"):
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                data += chunk
+        stat = json.loads(data[4:])
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the app exited {proc.returncode}:\n{err[-3000:]}")
+    metrics = json.loads(out.strip().splitlines()[-1])
+    log(f"  {' '.join(cmd[1:])}: rc 0 in {time.time() - t:.1f}s; GetStat on port {port}: "
+        f"requests {stat['requests']}, pipeline keys {sorted(stat.get('pipeline', {}))}")
+    log(f"  app metrics: n_frames={metrics['n_frames']}, fps={metrics['fps']:.3f}, "
+        f"plans_done={metrics['plans_done']}, last_path_len={metrics['last_path_len']}, "
+        f"compile_s={metrics['compile_s']:.2f}, restarts={metrics['restarts']}")
+    if metrics["n_frames"] != STREAM_FRAMES or "pipeline" not in stat:
+        raise AssertionError("the app served the wrong number of frames or GetStat lacks metrics")
+
+
+def ptq(torch, np, f32_engine, frames, counters):
+    """Weight-only int8: the pinned tree quantized with K5 (stochastic, seed
+    0), dequantized, carried across and served for 4 frames."""
+    from tod_tpu_torch.core.weights import carry_across, read_tree
+    from tod_tpu_torch.models.yolact import Yolact
+    from tod_tpu_torch.ops.quantize import dequantize_params, quantize_params, quantized_size_bytes
+    from tod_tpu_torch.runtime.engine import Engine
+
+    tree = read_tree()
+    cfg = f32_engine.cfg
+    reset(counters)
+    t = time.time()
+    qtree = quantize_params(tree, stochastic=True, seed=0)
+    torch.cuda.synchronize()
+    q_s = time.time() - t
+    state = carry_across(dequantize_params(qtree), Yolact(cfg.model))
+    eng = Engine(cfg, state, device="cuda")
+    n_kernels = sum(isinstance(v, dict) for v in qtree.values())
+    worst, share, n_valid = 0.0, [], []
+    for packed in frames[1:5]:
+        n_valid.append(check_plan(np, eng.serve_step_plan(packed).cpu().numpy(),
+                                  cfg.planner.max_path_steps))
+        h8, _ = eng.serve_step_scene(packed)
+        h32, _ = f32_engine.serve_step_scene(packed)
+        worst = max(worst, (h8 - h32).abs().max().item())
+        share.append(round((h8 != h32).float().mean().item(), 6))
+    launches = read(counters)
+    f32_bytes = sum(np.asarray(v).nbytes for v in tree.values())
+    log(f"  quantized {n_kernels} kernels in {q_s:.3f}s; {quantized_size_bytes(qtree)} bytes "
+        f"against {f32_bytes} in f32; plans n_valid {n_valid}; largest height difference "
+        f"against the f32 weights {worst}, share of heights differing {share}; "
+        f"launches {launches}")
+    if launches["quantize"] != n_kernels or min(launches.values()) == 0:
+        raise AssertionError(f"kernels not launched as expected on the PTQ path: {launches}")
+    return launches
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -441,13 +821,20 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import numpy as np
 
+    from tod_tpu_torch.core.weights import load_pinned
     from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips
     from tod_tpu_torch.kernels.connections import connection_weights
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
+    from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
-    counters = {"mask_assembly": assemble_crop_masks, "connections": connection_weights,
-                "path_walk": walk_path}
+    # each path's kernels, with their launch counters
+    serving = {"mask_assembly": assemble_crop_masks, "connections": connection_weights,
+               "path_walk": walk_path}
+    stream_path = {**serving, "bump_strips": dilate_peaks_strips}
+    k4_path = {"bump": dilate_peaks}
+    ptq_path = {**serving, "quantize": quantize_tensor_pallas}
 
     log("== 1. device")
     smi = nvidia_smi_line()
@@ -457,7 +844,7 @@ def main() -> int:
 
     log("== 2. build")
     t = time.time()
-    logs = _build.build(counters)
+    logs = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -470,20 +857,35 @@ def main() -> int:
     floor_ms, _ = time_ms(lambda: torch.cuda._sleep(0), torch)
     log(f"  timing floor (an empty kernel, same method): {floor_ms:.5f} ms")
     kernels = [check_k1(torch, np, rng, device), check_k2(torch, np, rng, device),
-               check_walk(torch, np, rng, device)]
+               check_walk(torch, np, rng, device), *check_bump(torch, np, rng, device),
+               check_k5(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
 
     log("== 4. main path")
-    path, launches, frame_ms = main_path(torch, np, counters)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    path, launches, frame_ms, eng, frames = main_path(torch, np, serving)
 
     log("== 5. reference check on a small input")
     reference_check(torch, np)
+    bump_reference_check(torch, np)
 
     log("== 6. server")
     serve_and_query(path)
 
+    log("== 7. streaming loop, app configuration, pallas_bump")
+    state = load_pinned()
+    stream_launches, _ = streaming(torch, np, state, stream_path, k4_path)
+
+    log("== 8. the app as a subprocess")
+    app_subprocess(root)
+
+    log("== 9. weight-only PTQ with K5")
+    ptq_launches = ptq(torch, np, eng, frames, ptq_path)
+
+    # launches: each kernel's count on the path it belongs to
+    launches.update({k: stream_launches[k] for k in ("bump_strips", "bump")})
+    launches["quantize"] = ptq_launches["quantize"]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

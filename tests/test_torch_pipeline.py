@@ -227,7 +227,7 @@ class TestFusion:
     @pytest.mark.parametrize("L", [3, 10])
     def test_dilate_peaks_matches_jax(self, L):
         from tod_tpu.geometry.fusion import _dilate_peaks as jax_dilate
-        from tod_tpu_torch.geometry.fusion import _dilate_peaks
+        from tod_tpu_torch.kernels.bump import plain_dilate_peaks
 
         rng = np.random.default_rng(L)
         h, w = 40, 56
@@ -235,7 +235,7 @@ class TestFusion:
         m = rng.random(ext.shape) < 0.05
         ext[m] = rng.integers(1, h, m.sum())  # terrain peaks are image rows
         want = np.asarray(jax.jit(jax_dilate, static_argnums=(1, 2, 3))(jnp.asarray(ext), L, 0.1, (h, w)))
-        got = _dilate_peaks(torch.from_numpy(ext), L, 0.1, (h, w)).numpy()
+        got = plain_dilate_peaks(torch.from_numpy(ext), L, 0.1, (h, w)).numpy()
         np.testing.assert_array_equal(got, want)
 
     def test_robot_occupancy_matches_jax(self):
@@ -405,6 +405,7 @@ import tod_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(tod_tpu_torch.__path__, "tod_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+import tod_tpu_torch.app, tod_tpu_torch.kernels.bump, tod_tpu_torch.ops.quantize
 from tod_tpu_torch.core import config
 from tod_tpu_torch.core.weights import load_pinned
 from tod_tpu_torch.ops.preprocess import pack_frame
@@ -418,20 +419,23 @@ cfg = config.PipelineConfig(
 eng = Engine(cfg, load_pinned(), device="cpu")
 f = synth_frame_numpy(0, 0, 120, 160)
 plan = eng.serve_step_plan(torch.from_numpy(pack_frame(f.rgb, f.depth)))
+rc = tod_tpu_torch.app.main(["--frames", "2", "--width", "64", "--height", "48",
+                             "--no-server"], device="cpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tod_tpu")
                 and sys.modules[m] is not None)
-print(len(mods), int(plan[0, 0]), loaded)
+print(len(mods), int(plan[0, 0]), rc, loaded)
 """
 
 
 def test_port_runs_without_jax():
     """The card's machine has no jax, flax, msgpack, orbax or PIL: import
-    every port module with those blocked, load the pinned weights and serve
-    one frame."""
+    every port module with those blocked, load the pinned weights, serve
+    one frame and run the app for two frames."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    n_mods, n_valid, loaded = out.stdout.split(maxsplit=2)
+    n_mods, n_valid, rc, loaded = out.stdout.split(maxsplit=3)
     assert int(n_mods) >= 20 and int(n_valid) > 5
+    assert int(rc) == 0
     assert loaded.strip() == "[]"

@@ -1,0 +1,175 @@
+"""The application entry point: camera -> model -> scene -> planner -> TCP
+server, on one NVIDIA GPU (counterpart of the JAX package's ``app.py``).
+
+Run as::
+
+    python -m tod_tpu_torch.app --source synthetic --frames 300 --port 8080
+    python -m tod_tpu_torch.app --source trace --trace capture.todtrace
+
+The parser is the JAX package's: the same flags, choices and defaults (a
+640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
+``--max-inflight 2``).  It serves the pinned weights through
+``Engine.run_supervised`` in the device-planner mode, which both
+``--planner auto`` and ``--planner tpu`` select on the card, with the path
+server's ``GetStat`` reporting the engine's fps, stage timers and restarts.
+Flags and values of features the port does not have yet exit with a message
+naming their item in ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="tod_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--source", choices=("synthetic", "png", "ring", "trace"), default="synthetic")
+    p.add_argument("--image", help="PNG path for --source png")
+    p.add_argument("--trace", help="TODTRACE path for --source ring/trace")
+    p.add_argument("--frames", type=int, default=None, help="stop after N frames")
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--fps", type=float, default=30.0, help="ring producer rate")
+    p.add_argument("--mode", choices=("detect", "semantic"), default="detect")
+    p.add_argument("--checkpoint", help="checkpoint dir with trained params")
+    p.add_argument("--todx", metavar="ARTIFACT", help="serve from a frozen .todx artifact")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--no-server", action="store_true")
+    p.add_argument("--auth-token", default=None,
+                   help="require the AuthTok handshake before serving commands")
+    p.add_argument("--tls-cert", default=None, help="serve the protocol over TLS")
+    p.add_argument("--tls-key", default=None)
+    p.add_argument("--tls-client-ca", default=None,
+                   help="require + verify client certificates against this CA (mTLS)")
+    p.add_argument("--planner", choices=("auto", "native", "numpy", "tpu"), default="auto")
+    p.add_argument("--signed-turns", action="store_true",
+                   help="emit signed turn angles (atan2 turn chain) instead of the "
+                   "reference's unsigned acos rotations (PlannerConfig.signed_turns)")
+    p.add_argument("--start-offset", type=int, default=240, metavar="COLS",
+                   help="planner start-node column offset from the grid's right edge")
+    p.add_argument("--int8", action="store_true", help="int8 end-to-end inference")
+    p.add_argument("--track", action="store_true", help="temporal ball tracking")
+    p.add_argument("--obstacle-memory", type=float, default=0.0, metavar="DECAY",
+                   help="decaying robot-obstacle memory (requires --track); 0 disables")
+    p.add_argument("--max-inflight", type=int, default=2, metavar="N",
+                   help="bound the device queue to N frames (0 = unbounded)")
+    p.add_argument("--plan-every", type=int, default=4, metavar="N",
+                   help="plan inside the frame step every N frames "
+                   "(0 = plan only at batch sync points)")
+    p.add_argument("--streams", type=int, default=1, metavar="N",
+                   help="serve N camera streams through one batched step")
+    p.add_argument("--pipeline", action="store_true", help="pipeline-parallel serving")
+    p.add_argument("--debug-dump", action="store_true", help="write map.bmp etc. per run")
+    p.add_argument("--metrics-json", action="store_true", help="print metrics as JSON at exit")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Exit with the ``ROADMAP.md`` item of the first flag the port lacks."""
+    refused = (
+        (args.source == "png", "--source png", "B: PNGSource"),
+        (args.source == "ring", "--source ring", "B: RingSource (the native ring)"),
+        (args.planner in ("numpy", "native"), f"--planner {args.planner}",
+         "B: the host-planner mode"),
+        (args.mode == "semantic", "--mode semantic", "B, M9: semantic mode"),
+        (args.checkpoint is not None, "--checkpoint", "B: the remaining app flags"),
+        (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
+        (args.int8, "--int8", "B, M12: int8 inference"),
+        (args.track, "--track", "B, M10: tracking"),
+        (args.obstacle_memory != 0.0, "--obstacle-memory", "B, M10: obstacle memory"),
+        (args.streams != 1, "--streams", "B, M11: multistream"),
+        (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
+        (any(v is not None for v in (args.auth_token, args.tls_cert, args.tls_key,
+                                     args.tls_client_ca)),
+         "--auth-token/--tls-*", "B: the remaining app flags (auth and TLS)"),
+        (args.debug_dump, "--debug-dump", "B: the remaining app flags"),
+    )
+    for hit, flag, item in refused:
+        if hit:
+            raise SystemExit(f"{flag} is not ported to tod_tpu_torch yet (ROADMAP.md {item})")
+
+
+def main(argv=None, device=None) -> int:
+    """Serve on ``device`` (default ``cuda``; the tests pass ``"cpu"``)."""
+    args = build_arg_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    _refuse_unported(args)
+
+    from tod_tpu_torch.core.config import (
+        CameraConfig,
+        ModelConfig,
+        PipelineConfig,
+        PlannerConfig,
+        ServerConfig,
+    )
+    from tod_tpu_torch.core.weights import load_pinned
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource, TraceSource
+    from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
+
+    if args.source == "trace" and not args.trace:
+        raise SystemExit("--source trace requires --trace")
+    cam = CameraConfig(width=args.width, height=args.height, fps=args.fps)
+    cfg = PipelineConfig(
+        camera=cam,
+        model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8)),
+        planner=PlannerConfig(signed_turns=args.signed_turns, start_offset=args.start_offset),
+        server=ServerConfig(host=args.host, port=args.port),
+    )
+
+    def make_source():
+        """A fresh source per (re)start: recovery re-opens the camera."""
+        if args.source == "trace":
+            return TraceSource(args.trace, loop=True, n_frames=args.frames)
+        return SyntheticSource(cam, n_frames=args.frames)
+
+    engine = Engine(cfg, load_pinned(cfg=cfg.model), device=device)
+    store = PathStore()
+    server_thread = server = None
+    if not args.no_server:
+        stats_fn = lambda: {  # noqa: E731 (GetStat's live metrics)
+            "fps": engine.fps.fps,
+            "stages": engine.timer.summary(),
+            "restarts": engine.restarts,
+        }
+        server_thread, server = run_in_thread(store, cfg.server, stats_fn=stats_fn)
+        logging.info("path server on %s:%s", cfg.server.host, server.port)
+    sources = [make_source()]
+    last_source = list(sources)
+
+    def next_source():
+        # the first start takes the source built above; restarts open fresh
+        s = sources.pop() if sources else make_source()
+        last_source[0] = s
+        return s
+
+    try:
+        metrics = engine.run_supervised(
+            next_source, n_frames=args.frames, path_store=store,
+            max_restarts=3, stall_timeout_s=10.0,
+            max_inflight=args.max_inflight or None,
+            plan_every=args.plan_every or None,
+        )
+    finally:
+        last_source[0].close()
+        if server is not None:
+            stop_thread_server(server)
+            server_thread.join(timeout=5)
+
+    if args.metrics_json:
+        print(json.dumps(metrics, default=float))
+    else:
+        logging.info(
+            "done: %d frames, %.1f fps, plan p50 %s ms",
+            metrics["n_frames"], metrics["fps"],
+            metrics["stages"].get("plan", {}).get("p50_ms"),
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -15,13 +15,14 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class CameraConfig:
     """RGB-D camera geometry (RealSense D435): 640x480, 87x58 degree FOV,
-    4 m depth clamp."""
+    4 m depth clamp, 30 frames a second."""
 
     width: int = 640
     height: int = 480
     x_fov: float = 1.51843644924  # 87 deg, radians
     y_fov: float = 1.01229096616  # 58 deg, radians
     max_depth_mm: float = 4000.0
+    fps: float = 30.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +69,8 @@ class GeometryConfig:
     terrain_norm_const: int = 10  # terrain bump radius, px
     bump_err: float = 0.1
     max_balls: int = 100
-    # Terrain dilation as a hand-written kernel.  Not ported yet: True raises.
+    # Terrain dilation through the hand-written kernel K3 (whole 16-row
+    # strips only, as in the JAX package); the ring loop otherwise.
     pallas_bump: bool = False
 
 
@@ -119,8 +121,6 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append("anchor_scales must have one entry per FPN level")
     if cfg.model.backbone != "mobilenetv2":
         problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
-    if cfg.geometry.pallas_bump:
-        problems.append("geometry.pallas_bump: the dilation kernel is not ported yet")
     if cfg.planner.max_seed_balls < 1:
         problems.append("planner.max_seed_balls must be >= 1")
     if cfg.planner.start_offset < 1:

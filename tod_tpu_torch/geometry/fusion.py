@@ -2,8 +2,10 @@
 the JAX package's ``geometry/fusion.py``).
 
 Per frame: perspective depth correction and birdseye projection, peak
-scatter-max per birdseye cell, the terrain and robot bump dilations, ball
-centroids by instance id, and the 8-neighbour connection weights (kernel K2).
+scatter-max per birdseye cell, the terrain bump dilation (the ring loop, or
+kernel K3 with ``GeometryConfig.pallas_bump``) and the robot bump dilation,
+ball centroids by instance id, and the 8-neighbour connection weights
+(kernel K2).
 Every step mirrors the float32 operations of the JAX reference in the same
 order; the transcendental functions (tan, atan, cos, pow) come from torch's
 libraries and may differ from XLA's by an ulp.
@@ -11,28 +13,36 @@ libraries and may differ from XLA's by an ulp.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
 from tod_tpu_torch.core.types import Scene
+from tod_tpu_torch.kernels.bump import dilate_peaks_strips, plain_dilate_peaks
 from tod_tpu_torch.kernels.connections import connection_weights
 from tod_tpu_torch.ops.ieee import div, rdiv, sqrt
 
 _F32 = torch.float32
 
 
+@functools.lru_cache(maxsize=8)
 def depth_correction_factors(cam: CameraConfig, shape: tuple[int, int], device) -> torch.Tensor:
     """Per-pixel ``cos(atan(tan(fov/2) * 2c/dim))`` for both axes (pixel
-    index scaled by 2/dim, not centred, as the reference shader does)."""
+    index scaled by 2/dim, not centred, as the reference shader does).
+
+    Constants of the camera: computed once with the host's tan, atan and
+    cos and cached per device, so that every device projects with the same
+    bits (the card's transcendentals differ from the host's by an ulp)."""
     h, w = shape
-    y = torch.arange(h, dtype=_F32, device=device)
-    x = torch.arange(w, dtype=_F32, device=device)
-    ty = torch.tan(torch.full((), cam.y_fov / 2.0, dtype=_F32, device=device))
-    tx = torch.tan(torch.full((), cam.x_fov / 2.0, dtype=_F32, device=device))
+    y = torch.arange(h, dtype=_F32)
+    x = torch.arange(w, dtype=_F32)
+    ty = torch.tan(torch.full((), cam.y_fov / 2.0, dtype=_F32))
+    tx = torch.tan(torch.full((), cam.x_fov / 2.0, dtype=_F32))
     fy = torch.cos(torch.arctan(div(ty * y * 2.0, float(h))))
     fx = torch.cos(torch.arctan(div(tx * x * 2.0, float(w))))
-    return fy[:, None] * fx[None, :]
+    return (fy[:, None] * fx[None, :]).to(device)
 
 
 def birdseye_project(depth_mm: torch.Tensor, cam: CameraConfig):
@@ -44,38 +54,6 @@ def birdseye_project(depth_mm: torch.Tensor, cam: CameraConfig):
     bird_y = h - z
     bird_x = torch.arange(w, dtype=torch.int32, device=depth_mm.device)[None, :].expand(h, w)
     return bird_y, bird_x, z
-
-
-def _bump_value(val: torch.Tensor, prox, bump_err: float) -> torch.Tensor:
-    """``val / (1 + C1^prox)`` with ``C1 = max(val/err - 1, 1e-6)``."""
-    c1 = (div(val, bump_err) - 1.0).clamp_min(1e-6)
-    return val / (1.0 + torch.pow(c1, prox))
-
-
-def _dilate_peaks(peaks_ext: torch.Tensor, bump_size: int, bump_err: float, out_shape):
-    """Max-reduce ``floor(g(peak, r))`` over the (2L)^2 displacement window
-    [-L, L-1]^2 of a P-padded peak map.  Displacements of equal r^2 are
-    max-reduced first and share one bump evaluation (exact: g is monotone in
-    the peak over the visible region).  Returns (H, W) f32 integral values."""
-    h, w = out_shape
-    pad = (peaks_ext.shape[0] - h) // 2
-    L = bump_size
-    c2 = 2.0 / float(L)
-    side = 2 * L
-    rings: dict[int, list[tuple[int, int]]] = {}
-    for i in range(side * side):
-        dy, dx = i // side - L, i % side - L
-        rings.setdefault(dy * dy + dx * dx, []).append((dy, dx))
-    acc = torch.zeros((h, w), dtype=_F32, device=peaks_ext.device)
-    for r2, disps in sorted(rings.items()):
-        gmax = None
-        for dy, dx in disps:
-            src = peaks_ext[pad - dy : pad - dy + h, pad - dx : pad - dx + w]
-            gmax = src if gmax is None else torch.maximum(gmax, src)
-        prox = float(r2**0.5)
-        contrib = torch.floor(_bump_value(gmax, c2 * prox - 1.0, bump_err))
-        acc = torch.maximum(acc, torch.where(gmax > 0, contrib, 0.0))
-    return acc
 
 
 def _dilate_const_separable(peaks_ext: torch.Tensor, bump_size: int, val: float,
@@ -151,16 +129,19 @@ def occupancy_map(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
     """(H, W) f32 height map: terrain pixels (class 0) bump their own image
     row with radius ``terrain_norm_const``; robots (classes 1, 2) bump
     ``bot_avoidance_const`` with radius ``bot_norm_const``; balls write none."""
-    if geom.pallas_bump:
-        raise NotImplementedError("the terrain dilation kernel (pallas_bump) is not ported yet")
     h, w = depth_mm.shape
     dev = depth_mm.device
     bird_y, _, _ = birdseye_project(depth_mm, cam)
     rows = torch.arange(h, dtype=_F32, device=dev)[:, None].expand(h, w)
     pad_t = geom.terrain_norm_const
-    terrain = _dilate_peaks(
-        _scatter_peaks(bird_y, cls_map == 0, rows, pad_t), pad_t, geom.bump_err, (h, w)
-    )
+    terrain_peaks = _scatter_peaks(bird_y, cls_map == 0, rows, pad_t)
+    # the JAX package's selection rule: the strip kernel (K3) with
+    # ``pallas_bump`` on whole 16-row strips, the ring loop otherwise; on a
+    # CPU tensor the wrapper runs that same ring loop
+    if geom.pallas_bump and h % 16 == 0:
+        terrain = dilate_peaks_strips(terrain_peaks, pad_t, geom.bump_err, (h, w), strip_h=16)
+    else:
+        terrain = plain_dilate_peaks(terrain_peaks, pad_t, geom.bump_err, (h, w))
     robots = _dilate_const_separable(
         _robot_peaks(bird_y, cls_map, geom), geom.bot_norm_const,
         geom.bot_avoidance_const, geom.bump_err, (h, w),

@@ -1,31 +1,51 @@
-"""The serving engine: packed frame -> masks -> scene -> plan
-(counterpart of the JAX package's ``runtime/engine.py``).
+"""The serving engine: packed frame -> masks -> scene -> plan, and the
+streaming loop around it (counterpart of the JAX package's
+``runtime/engine.py``).
 
 ``serve_step_plan`` is the port of the fused frame+plan graph
 ``Engine._serve_step_plan``: one packed uint8 frame (H*W*3 RGB bytes, then
 the depth as little-endian u16) in, one ``(max_path_steps + 1, 2)`` f32 plan
 buffer out.  It runs eagerly on the engine's device: preprocess, the YOLACT
 forward in ``ModelConfig.dtype``, detection cleanup (kernel K1), the
-occupancy map and ball centroids, then the planner (kernel K2 for its edges).
+occupancy map (kernel K3 with ``GeometryConfig.pallas_bump``) and ball
+centroids, then the planner (kernel K2 for its edges, the path walk kernel).
 The JAX graph dead-codes the scene's connection/pos maps that nothing reads;
 here they are simply not computed on this path.
+
+``run`` streams a frame source through it in the JAX package's device-planner
+mode: every ``plan_every``-th frame through ``serve_step_plan``, the others
+through ``serve_step_scene``; a CUDA event recorded after each frame stands
+in for ``block_until_ready``.  Three helper threads touch no device tensor:
+the uploader packs frames into (pinned) host memory, the planner waits on a
+plan's event and decodes its host copy, the latency sampler waits on frame
+events.  The relaxation reads its convergence flags back every 16 sweeps,
+so a planning frame holds the loop's thread until its plan is settled,
+whatever ``max_inflight`` allows.  The JAX package's ``probe_rtt`` measures
+a remote TPU transport and has no counterpart on a local card.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
+from collections import deque
 from typing import Mapping
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from tod_tpu_torch.core.config import PipelineConfig, validate
 from tod_tpu_torch.core.device import resolve_device
+from tod_tpu_torch.core.types import Path
 from tod_tpu_torch.core.weights import check_state, load_pinned
 from tod_tpu_torch.geometry.fusion import ball_centroids, occupancy_map
 from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
 from tod_tpu_torch.ops.preprocess import preprocess_frame, unpack_frame
 from tod_tpu_torch.planner.relax import plan_on_device, start_node_yx
+from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
 
 
 class Engine:
@@ -55,6 +75,10 @@ class Engine:
         self.cam_hw = (cam.height, cam.width)
         self.start_yx = start_node_yx(self.cam_hw, offset=self.cfg.planner.start_offset)
         self.last_sweeps: int | None = None
+        self.timer = StageTimer()
+        self.fps = FPSMeter()
+        self.restarts = 0
+        self._abort = False
 
     @torch.inference_mode()
     def serve_step_scene(self, packed: torch.Tensor):
@@ -80,7 +104,11 @@ class Engine:
     def serve_step_plan(self, packed: torch.Tensor) -> torch.Tensor:
         """Packed frame -> (max_path_steps + 1, 2) f32 plan buffer; the
         relaxation's sweep count lands in ``self.last_sweeps``."""
-        height, balls = self.serve_step_scene(packed)
+        return self.plan_scene(*self.serve_step_scene(packed))
+
+    @torch.inference_mode()
+    def plan_scene(self, height: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
+        """The device planner on one scene -> the plan buffer."""
         pcfg = self.cfg.planner
         plan, self.last_sweeps = plan_on_device(
             height, balls, self.start_yx,
@@ -91,3 +119,341 @@ class Engine:
             signed=pcfg.signed_turns,
         )
         return plan
+
+    def _packed_zeros(self) -> torch.Tensor:
+        h, w = self.cam_hw
+        return torch.zeros(h * w * 5, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def warmup(self) -> float:
+        """Serve one all-zero frame through both steps (cuDNN plans, kernel
+        builds and loads); returns seconds, per step in ``warmup_breakdown``."""
+        breakdown: dict[str, float] = {}
+        t_total = time.perf_counter()
+        for name, step in (("serve_step_scene", self.serve_step_scene),
+                           ("serve_step_plan", self.serve_step_plan)):
+            t0 = time.perf_counter()
+            step(self._packed_zeros())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            breakdown[name] = round(time.perf_counter() - t0, 2)
+        self.warmup_breakdown = breakdown
+        return time.perf_counter() - t_total
+
+    def _readback(self, plan: torch.Tensor):
+        """Start the plan's copy to host: ``(host tensor, done event or None)``."""
+        if self.device.type != "cuda":
+            return plan, None
+        host = torch.empty(plan.shape, dtype=plan.dtype, pin_memory=True)
+        host.copy_(plan, non_blocking=True)
+        return host, _record_event()
+
+    def run(
+        self,
+        source,
+        n_frames: int | None = None,
+        path_store=None,
+        plan_paths: bool = True,
+        warmup: bool = True,
+        watchdog=None,
+        sync_every: int = 16,
+        max_inflight: int | None = None,
+        plan_every: int | None = None,
+    ) -> dict:
+        """Stream ``source`` through the engine; returns the JAX package's
+        metrics (fps, wall time, stage percentiles, plans done).
+
+        ``max_inflight`` bounds the frames queued on the device (the loop
+        waits on the event of frame n - k); ``plan_every`` plans every n-th
+        frame inside its step, and ``None`` plans the last scene of each
+        ``sync_every`` batch instead.  The planner publishes the freshest plan
+        only (drop-old).  The ``frame`` stage is the batch mean between
+        syncs, ``latency`` a sampled dispatch-to-done time, ``plan`` the
+        planner thread's wait and decode, and ``dispatch_plan`` /
+        ``dispatch_scene`` the loop thread's time in each step.
+        """
+        compile_s = self.warmup() if warmup else 0.0
+        if watchdog is not None:
+            watchdog.heartbeat()  # set-up is not a stall
+        planner = _PlannerWorker(self, path_store) if plan_paths else None
+        uploader = _UploadWorker(source, n_frames, pin=self.device.type == "cuda")
+        sampler = _LatencySampler(self.timer)
+        inflight: deque = deque()
+        n_done = batch_n = 0
+        out = done = None
+        self._abort = False
+        t_start = t_batch = time.perf_counter()
+        while True:
+            item = uploader.next(timeout=0.25)
+            if item is _UploadWorker.TIMEOUT:
+                if self._abort:
+                    break
+                continue
+            if item is None:
+                break
+            t_dispatch = time.perf_counter()
+            plan_frame = planner is not None and plan_every is not None and n_done % plan_every == 0
+            if plan_frame:
+                with self.timer.stage("dispatch_plan"):
+                    out = self.serve_step_plan(item)
+                planner.submit(self._readback(out))
+            else:
+                with self.timer.stage("dispatch_scene"):
+                    out = self.serve_step_scene(item)
+            done = _record_event() if self.device.type == "cuda" else None
+            if max_inflight is not None:
+                inflight.append(done)
+                if len(inflight) > max_inflight:
+                    _wait(inflight.popleft())
+            sampler.submit(done, t_dispatch)
+            if watchdog is not None:
+                watchdog.heartbeat()
+            n_done += 1
+            batch_n += 1
+            if batch_n >= sync_every:
+                _wait(done)
+                if planner is not None and plan_every is None:
+                    planner.submit(self._readback(self.plan_scene(*out)))
+                t_batch = self._record_batch(t_batch, batch_n)
+                if watchdog is not None:
+                    watchdog.heartbeat()
+                batch_n = 0
+        # the watchdog guards frame progress: the drain below is not a stall
+        if watchdog is not None:
+            watchdog.stop()
+        if out is not None and batch_n:
+            _wait(done)
+            if planner is not None and plan_every is None:
+                planner.submit(self._readback(self.plan_scene(*out)))
+            self._record_batch(t_batch, batch_n)
+        wall = time.perf_counter() - t_start
+        uploader.close()
+        sampler.finish()
+        t_drain = time.perf_counter()
+        last_path = planner.finish() if planner is not None else None
+        return {
+            "n_frames": n_done,
+            "wall_s": wall,
+            "fps": n_done / wall if wall > 0 else 0.0,
+            "plan_drain_s": time.perf_counter() - t_drain,
+            "compile_s": compile_s,
+            "stages": self.timer.summary(),
+            "plans_done": planner.n_planned if planner is not None else 0,
+            "last_path_len": len(last_path.directions) if last_path else 0,
+            "rtt_saturated": 0,  # no transport probe on a local card
+        }
+
+    def _record_batch(self, t_batch: float, batch_n: int) -> float:
+        now = time.perf_counter()
+        for _ in range(batch_n):
+            self.timer.record("frame", (now - t_batch) / batch_n)
+            self.fps.tick()
+        return now
+
+    def abort(self) -> None:
+        """Ask a running ``run()`` loop to exit at its next idle poll (the
+        watchdog's recovery hook; safe from any thread)."""
+        self._abort = True
+
+    def run_supervised(self, source_factory, n_frames: int | None = None, path_store=None,
+                       max_restarts: int = 3, stall_timeout_s: float = 5.0, **run_kw) -> dict:
+        """``run()`` under a watchdog that recovers from source stalls: a
+        stall aborts the loop, the source is closed and a fresh one from
+        ``source_factory`` takes over, up to ``max_restarts`` times.  The
+        count is in the metrics and in ``self.restarts`` (read by GetStat).
+        A hang inside a device step blocks the loop's thread itself and needs
+        supervision of the process."""
+        from tod_tpu_torch.runtime.watchdog import Watchdog
+
+        self.restarts = 0
+        total: dict = {"n_frames": 0, "wall_s": 0.0, "plans_done": 0}
+        warm = run_kw.pop("warmup", True)
+        while True:
+            wd = Watchdog(timeout_s=stall_timeout_s, on_stall=lambda age: self.abort())
+            wd.start()
+            source = source_factory()
+            try:
+                m = self.run(
+                    source,
+                    n_frames=None if n_frames is None else n_frames - total["n_frames"],
+                    path_store=path_store, warmup=warm, watchdog=wd, **run_kw,
+                )
+            finally:
+                wd.stop()
+                # a wedged source's close() may hang itself: close it on a
+                # daemon thread with a short grace period
+                closer = threading.Thread(target=_call_quietly, args=(source.close,),
+                                          daemon=True, name="tod-source-closer")
+                closer.start()
+                closer.join(timeout=2.0)
+            warm = False
+            total["n_frames"] += m["n_frames"]
+            total["wall_s"] += m["wall_s"]
+            total["plans_done"] += m.get("plans_done", 0)
+            total.update({k: m[k] for k in ("compile_s", "stages", "last_path_len") if k in m})
+            done = n_frames is not None and total["n_frames"] >= n_frames
+            if not self._abort or done or self.restarts >= max_restarts:
+                break
+            self.restarts += 1
+        total["fps"] = total["n_frames"] / total["wall_s"] if total["wall_s"] > 0 else 0.0
+        total["restarts"] = self.restarts
+        return total
+
+
+def _call_quietly(fn) -> None:
+    try:
+        fn()
+    except Exception:
+        pass
+
+
+def _record_event() -> torch.cuda.Event:
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def _wait(event) -> None:
+    """Wait for a frame's event; ``None`` (the CPU, whose steps return
+    finished) has nothing to wait for."""
+    if event is not None:
+        event.synchronize()
+
+
+class _UploadWorker:
+    """Packs each frame into one flat uint8 buffer (RGB, then little-endian
+    u16 depth), pinned for an asynchronous copy when serving on the card,
+    while the loop serves the previous frame."""
+
+    _SENTINEL = object()
+    TIMEOUT = object()
+
+    def __init__(self, source, n_frames: int | None, pin: bool, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = False
+
+        def _loop():
+            try:
+                n = 0
+                for frame in source.frames():
+                    if self._stop or (n_frames is not None and n >= n_frames):
+                        break
+                    h, w = frame.depth.shape
+                    packed = np.empty((h * w * 5,), np.uint8)
+                    packed[: h * w * 3] = np.ascontiguousarray(frame.rgb, np.uint8).reshape(-1)
+                    packed[h * w * 3 :] = (
+                        np.ascontiguousarray(frame.depth, "<u2").view(np.uint8).reshape(-1)
+                    )
+                    t = torch.from_numpy(packed)
+                    self._q.put(t.pin_memory() if pin else t)
+                    n += 1
+            finally:
+                # the sentinel must reach the loop even if the source raises
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=_loop, daemon=True, name="tod-uploader")
+        self._thread.start()
+
+    def next(self, timeout: float | None = None):
+        """The next packed frame; None when the source is exhausted; TIMEOUT
+        if nothing arrived within ``timeout`` (the abortable poll)."""
+        try:
+            item = self._q.get(timeout=timeout)
+        except queue.Empty:
+            return self.TIMEOUT
+        return None if item is self._SENTINEL else item
+
+    def close(self) -> None:
+        self._stop = True
+        try:  # drain so the producer can reach the sentinel and exit
+            while self._q.get_nowait() is not self._SENTINEL:
+                pass
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5)
+
+
+class _PlannerWorker:
+    """Depth-1 latest-plan thread (drop-old): waits for a plan's copy to
+    reach the host, decodes it and publishes it to the path store."""
+
+    def __init__(self, engine: Engine, path_store):
+        self.engine = engine
+        self.path_store = path_store
+        self.n_planned = 0
+        self.last_path: Path | None = None
+        self._slot = None
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="tod-planner")
+        self._thread.start()
+
+    def submit(self, readback) -> None:
+        with self._cv:
+            self._slot = readback  # overwrite: plan the freshest frame only
+            self._cv.notify()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._slot is None and not self._stop:
+                    self._cv.wait()
+                if self._slot is None and self._stop:
+                    return
+                (host, done), self._slot = self._slot, None
+            with self.engine.timer.stage("plan"):
+                _wait(done)
+                path = Path.from_plan(host.numpy())
+            self.n_planned += 1
+            self.last_path = path
+            if self.path_store is not None:
+                self.path_store.set(path)
+
+    def finish(self) -> Path | None:
+        deadline = time.time() + 10.0
+        while time.time() < deadline:
+            with self._cv:
+                if self._slot is None:
+                    break
+            time.sleep(0.005)
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._thread.join(timeout=10)
+        return self.last_path
+
+
+class _LatencySampler:
+    """Per-frame dispatch-to-done latency, sampled: waits on the event of
+    the freshest submitted frame (drop-old) and records the ``latency``
+    stage, without ever stalling the loop."""
+
+    def __init__(self, timer: StageTimer):
+        self.timer = timer
+        self._slot = None
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="tod-latency")
+        self._thread.start()
+
+    def submit(self, done, t_dispatch: float) -> None:
+        with self._cv:
+            self._slot = (done, t_dispatch)
+            self._cv.notify()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._slot is None and not self._stop:
+                    self._cv.wait()
+                if self._slot is None and self._stop:
+                    return
+                (done, t0), self._slot = self._slot, None
+            _wait(done)
+            self.timer.record("latency", time.perf_counter() - t0)
+
+    def finish(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._thread.join(timeout=5)

@@ -1,12 +1,21 @@
-"""Synthetic camera frames (counterpart of the JAX package's ``runtime/frame_source.py``).
+"""Frame sources (counterpart of the JAX package's ``runtime/frame_source.py``).
 
-``synth_frame_numpy`` is a copy of the JAX package's NumPy generator, byte for
-byte: a depth ramp with two yellow balls, a red and a blue robot box moving
-with ``t``.
+- ``SyntheticSource``  a deterministic moving scene: ``synth_frame_numpy`` is
+                       a copy of the JAX package's NumPy generator, byte for
+                       byte (a depth ramp with two yellow balls, a red and a
+                       blue robot box moving with ``t``)
+- ``TraceSource``      replay of a recorded TODTRACE file; ``write_trace``
+                       records one, in the same format as the JAX package's,
+                       so a trace written by either package replays in the
+                       other
+- ``PacedSource``      wraps any source to emit at a fixed FPS
 """
 
 from __future__ import annotations
 
+import pathlib
+import struct
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -74,6 +83,82 @@ class SyntheticSource:
         t = 0
         while self.n_frames is None or t < self.n_frames:
             yield synth_frame_numpy(self.seed, t, self.cam.height, self.cam.width)
+            t += 1
+
+    def close(self) -> None:
+        pass
+
+
+class PacedSource:
+    """Rate-limit any source to ``fps`` (a real camera's frame clock).
+
+    Sleeps the producer to the camera period and never skips a frame; a slow
+    consumer delays the clock instead of building a backlog."""
+
+    def __init__(self, source, fps: float = 30.0):
+        if fps <= 0:
+            raise ValueError(f"fps must be positive, got {fps}")
+        self._source = source
+        self._period = 1.0 / fps
+
+    def frames(self) -> Iterator[Frame]:
+        next_t = time.monotonic()
+        for frame in self._source.frames():
+            now = time.monotonic()
+            if now < next_t:
+                time.sleep(next_t - now)
+                now = next_t
+            next_t = max(next_t + self._period, now)
+            yield frame
+
+    def close(self) -> None:
+        self._source.close()
+
+
+_TRACE_MAGIC = b"TODTRACE"
+
+
+def write_trace(path: str | pathlib.Path, frames: list[Frame]) -> None:
+    """Record frames as TODTRACE: the magic, ``<III`` height, width and
+    count, then per frame the RGB bytes and the little-endian u16 depth."""
+    h, w = frames[0].rgb.shape[:2]
+    with open(path, "wb") as f:
+        f.write(_TRACE_MAGIC)
+        f.write(struct.pack("<III", h, w, len(frames)))
+        for fr in frames:
+            f.write(np.ascontiguousarray(fr.rgb, np.uint8).tobytes())
+            f.write(np.ascontiguousarray(fr.depth, "<u2").tobytes())
+
+
+class TraceSource:
+    """Replay a TODTRACE recording (loops when ``loop=True``)."""
+
+    def __init__(self, path: str | pathlib.Path, loop: bool = False,
+                 n_frames: Optional[int] = None):
+        self.path = pathlib.Path(path)
+        raw = self.path.read_bytes()
+        if raw[:8] != _TRACE_MAGIC:
+            raise ValueError(f"{path} is not a TODTRACE file")
+        self.h, self.w, self.count = struct.unpack_from("<III", raw, 8)
+        self._raw = raw
+        self.loop = loop
+        self.n_frames = n_frames
+
+    def _frame(self, k: int) -> Frame:
+        px = self.h * self.w
+        off = 20 + k * px * 5
+        rgb = np.frombuffer(self._raw, np.uint8, px * 3, off).reshape(self.h, self.w, 3)
+        depth = np.frombuffer(self._raw, "<u2", px, off + px * 3).reshape(self.h, self.w)
+        return Frame(rgb=rgb, depth=depth.astype(np.uint16))
+
+    def frames(self) -> Iterator[Frame]:
+        t = 0
+        while True:
+            if self.n_frames is not None and t >= self.n_frames:
+                return
+            if not self.loop and t >= self.count:
+                return
+            yield self._frame(t % self.count)
             t += 1
 
     def close(self) -> None:

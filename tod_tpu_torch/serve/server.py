@@ -8,7 +8,9 @@ Wire protocol:
 - ``GetPath`` -> the serialized path: 8-byte big-endian unix seconds, then two
   big-endian f32s per direction
 - ``GetPth2`` -> the same payload prefixed with its u32 big-endian length
-- ``GetStat`` -> length-prefixed JSON of counters and path staleness
+- ``GetStat`` -> length-prefixed JSON of counters, path staleness and, when
+  the server was given a ``stats_fn``, the engine's live metrics under
+  ``pipeline`` (fps, stage timers, restarts)
 - anything else -> logged, connection dropped
 
 Connections are served concurrently; commands may be pipelined.
@@ -51,9 +53,13 @@ class PathStore:
 
 
 class PathServer:
-    def __init__(self, store: PathStore, cfg: ServerConfig | None = None) -> None:
+    """``stats_fn`` (optional) returns live pipeline metrics, merged into the
+    ``GetStat`` reply."""
+
+    def __init__(self, store: PathStore, cfg: ServerConfig | None = None, stats_fn=None) -> None:
         self.store = store
         self.cfg = cfg or ServerConfig()
+        self.stats_fn = stats_fn
         self._started = time.time()
         self.counters = {
             "NewPath": 0, "GetPath": 0, "GetPth2": 0, "GetStat": 0, "errors": 0,
@@ -105,13 +111,19 @@ class PathServer:
 
     def stats(self) -> dict:
         path = self.store.get()
-        return {
+        out = {
             "uptime_s": time.time() - self._started,
             "requests": dict(self.counters),
             "path_age_s": time.time() - path.created,
             "path_len": len(path.directions),
             "path_truncated": bool(path.truncated),
         }
+        if self.stats_fn is not None:
+            try:
+                out["pipeline"] = self.stats_fn()
+            except Exception as e:  # metrics must never take the server down
+                out["pipeline_error"] = repr(e)
+        return out
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(self._handle, self.cfg.host, self.cfg.port)
@@ -131,10 +143,10 @@ class PathServer:
             self._server = None
 
 
-def run_in_thread(store: PathStore, cfg: ServerConfig | None = None):
+def run_in_thread(store: PathStore, cfg: ServerConfig | None = None, stats_fn=None):
     """Start the server on a daemon thread with its own event loop; returns
     ``(thread, server)`` or raises if it fails to start within 10 s."""
-    server = PathServer(store, cfg)
+    server = PathServer(store, cfg, stats_fn=stats_fn)
     ready = threading.Event()
     holder: dict = {}
 
