@@ -7,16 +7,19 @@ Phases, each printed as it ends:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every kernel in ``tod_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once;
-3. each kernel (mask assembly, connection weights, path walk, the terrain
-   dilation K3/K4, the stochastic quantizer K5) against its plain torch
-   version on the card, at the main path's shapes and a ragged shape, and its
-   device time (CUDA events, median of 50 calls after a warm-up, enqueued
-   behind a sleep kernel) beside the plain version's and a library call's;
+   process per source, all at once, and of the native host planner with g++;
+3. each kernel (mask assembly, connection weights, the relaxation, the path
+   walk, the terrain dilation K3/K4, the stochastic quantizer K5) against its
+   plain torch version on the card, at the main path's shapes and a ragged
+   shape, and its device time (CUDA events, median of 50 calls after a
+   warm-up, enqueued behind a sleep kernel) beside the plain version's and a
+   library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
-   configuration, 8 synthetic frames through ``Engine.serve_step_plan``, with
-   the path's launch counts reset before and read after; then one frame
-   under ``torch.profiler`` for the device time of each ``stage/`` range;
+   configuration; one frame through ``Engine.serve_step_plan`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
+   fails the phase), then 8 synthetic frames, with the path's launch counts
+   reset before and read after; then one frame under ``torch.profiler`` for
+   the device time of each ``stage/`` range;
 5. a reference check on a small input: each stage on the card against the
    same stage on the CPU, fed the same inputs, and the occupancy map with
    the terrain kernel (``pallas_bump``) against the CPU's, exactly;
@@ -30,7 +33,10 @@ Phases, each printed as it ends:
 8. ``python3 -m tod_tpu_torch.app`` as a subprocess over 16 frames, with
    one ``GetStat`` while it runs;
 9. weight-only PTQ: the pinned tree quantized with K5 (stochastic, seed 0),
-   dequantized, carried across and served for 4 frames.
+   dequantized, carried across and served for 4 frames;
+10. the host-planner mode: the default configuration with
+   ``PlannerConfig(backend="native")`` streamed through ``run_supervised``
+   for 8 frames, every frame planned by the native planner on the host.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -190,51 +196,104 @@ def check_k2(torch, np, rng, device):
     }
 
 
-def check_walk(torch, np, rng, device):
+def relax_inputs(torch, np, rng, device, h, w, seeds):
+    """A rolling height map (a random walk down the rows), its K2 edges and
+    a seed map, on ``device``."""
     from tod_tpu_torch.kernels.connections import connection_weights
-    from tod_tpu_torch.kernels.path_walk import plain_walk_path, walk_path
-    from tod_tpu_torch.planner.relax import bellman_ford_grid, start_node_yx
 
-    def relaxed(h, w, seeds):
-        hm = np.cumsum(rng.normal(0, 0.3, (h, w)), axis=0).astype(np.float32)
-        height = torch.from_numpy(hm - hm.min()).to(device)
-        seed = torch.zeros((h, w), dtype=torch.bool, device=device)
-        for y, x in seeds:
-            seed[y, x] = True
-        _, conns = connection_weights(height)
-        dist, nxt, _ = bellman_ford_grid(height, conns, seed)
-        return dist, nxt
+    hm = np.cumsum(rng.normal(0, 0.3, (h, w)), axis=0).astype(np.float32)
+    height = torch.from_numpy(hm - hm.min()).to(device)
+    seed = torch.zeros((h, w), dtype=torch.bool, device=device)
+    for y, x in seeds:
+        seed[y, x] = True
+    _, conns = connection_weights(height)
+    return height, conns, seed
+
+
+def check_relax(torch, np, rng, device):
+    """The relaxation kernel against ``plain_bellman_ford_grid`` on the card:
+    distances bit for bit, next hops and the sweep count equal, at VGA, QVGA,
+    a ragged map and a seedless one, and at VGA with max_iters = sweeps - 2."""
+    from tod_tpu_torch.kernels.relax import bellman_ford_grid, plain_bellman_ford_grid
+
+    main = None
+    cases = [((480, 640), [(20, 100), (200, 600)]), ((240, 320), [(10, 300), (120, 40), (239, 5)]),
+             ((37, 53), [(3, 40)]), ((37, 53), [])]
+    for (h, w), seeds in cases:
+        args = relax_inputs(torch, np, rng, device, h, w, seeds)
+        runs = [(None, *plain_bellman_ford_grid(*args))]
+        if main is None:
+            runs.append((runs[0][3] - 2, *plain_bellman_ford_grid(*args, max_iters=runs[0][3] - 2)))
+        for max_iters, want_d, want_n, want_s in runs:
+            kw = {} if max_iters is None else {"max_iters": max_iters}
+            dist, nxt, sweeps = bellman_ford_grid(*args, **kw)
+            torch.cuda.synchronize()
+            ok = (torch.equal(dist, want_d) and torch.equal(nxt, want_n)
+                  and int(sweeps) == want_s)
+            log(f"  relax H,W=({h},{w}) seeds={len(seeds)} max_iters={max_iters or 2048}: "
+                f"sweeps {int(sweeps)} (plain {want_s}), dist bitwise and next_dir equal={ok} "
+                f"(tol exact), reached={int((want_d < 3.4e38).sum())}")
+            if not ok:
+                raise AssertionError(f"the relaxation disagrees with its plain version at {(h, w)}")
+        if main is None:
+            main = args, runs[0][3]
+    args, sweeps = main
+    h, w = args[0].shape
+    ms, wall = time_ms(lambda: bellman_ford_grid(*args), torch)
+    plain_ms, plain_wall = time_ms(lambda: plain_bellman_ford_grid(*args), torch, n=5, warmup=1)
+    # inputs read once (height, 8 edges, the seed byte), dist, next_dir and
+    # the count written once; 8 candidates x 3 operations a node a sweep,
+    # and once more for the argmin
+    bms, by = bound_ms(h * w * (4 + 32 + 1 + 4 + 8) + 4, 24.0 * h * w * (sweeps + 1))
+    log(f"  relax times at ({h},{w}), {sweeps} sweeps: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"bound_ms={bms:.6f} ({by}; the {sweeps} grid barriers are not in it); wall per "
+        f"call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+    return {
+        "name": "relax", "route": "cuda", "source": "tod_tpu_torch/csrc/relax.cu",
+        "replaces": "tod_tpu/planner/tpu_relax.py:50",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+    }
+
+
+def check_walk(torch, np, rng, device):
+    from tod_tpu_torch.kernels.path_walk import plain_walk_path, walk_path
+    from tod_tpu_torch.kernels.relax import bellman_ford_grid
+    from tod_tpu_torch.planner.relax import start_node_yx
 
     tol = 1e-6  # turns: acosf/atan2f against libm in the last bit; the rest exact
     worst, main = 0.0, None
-    steps = 1024
     for (h, w), seeds in (((480, 640), [(20, 100), (200, 600)]), ((37, 53), [(3, 40)]),
                           ((37, 53), [])):
-        dist, nxt = relaxed(h, w, seeds)
+        dist, nxt, _ = bellman_ford_grid(*relax_inputs(torch, np, rng, device, h, w, seeds))
         start = start_node_yx((h, w), 240)
-        for signed in (False, True):
-            got = walk_path(dist, nxt, start, steps, signed)
-            want = plain_walk_path(dist, nxt, start, steps, signed)
-            got = got.cpu()
-            err = (got - want).abs().max().item()
-            exact = torch.equal(got[0], want[0]) and torch.equal(got[:, 0], want[:, 0])
-            log(f"  path_walk H,W=({h},{w}) seeds={len(seeds)} signed={signed}: "
-                f"n_valid={int(want[0, 0])}, header and magnitudes equal={exact}, "
-                f"max_abs_err={err:.3e} (tol {tol:g})")
-            if not (exact and err <= tol):
-                raise AssertionError(f"path_walk disagrees with its plain version at {(h, w)}")
-            worst = max(worst, err)
+        for steps in (2048, 1024, 7, 0):
+            for signed in (False, True):
+                got = walk_path(dist, nxt, start, steps, signed)
+                want = plain_walk_path(dist, nxt, start, steps, signed)
+                got = got.cpu()
+                err = (got - want).abs().max().item()
+                exact = torch.equal(got[0], want[0]) and torch.equal(got[:, 0], want[:, 0])
+                log(f"  path_walk H,W=({h},{w}) seeds={len(seeds)} max_steps={steps} "
+                    f"signed={signed}: n_valid={int(want[0, 0])}, truncated={int(want[0, 1])}, "
+                    f"header and magnitudes equal={exact}, max_abs_err={err:.3e} (tol {tol:g})")
+                if not (exact and err <= tol):
+                    raise AssertionError(f"path_walk disagrees with its plain version at {(h, w)}")
+                worst = max(worst, err)
         if main is None:
-            main = dist, nxt, start, int(want[0, 0])
+            main = dist, nxt, start, int(plain_walk_path(dist, nxt, start, 2048)[0, 0])
     dist, nxt, start, hops = main
-    ms, wall = time_ms(lambda: walk_path(dist, nxt, start, steps), torch)
-    plain_ms, plain_wall = time_ms(lambda: plain_walk_path(dist, nxt, start, steps), torch)
+    times = {}
+    for steps in (2048, 1024):  # the main path's cap, and the serial walk's timed cap
+        times[steps] = time_ms(lambda: walk_path(dist, nxt, start, steps), torch)
+    ms, wall = times[2048]
+    plain_ms, plain_wall = time_ms(lambda: plain_walk_path(dist, nxt, start, 2048), torch)
     # what this walk needs: each hop's node read once from both maps, the plan written
-    bms, by = bound_ms((hops + 1) * (4 + 8) + (steps + 1) * 2 * 4, 20.0 * hops)
+    bms, by = bound_ms((hops + 1) * (4 + 8) + (2048 + 1) * 2 * 4, 20.0 * hops)
     log(f"  path_walk times at ({dist.shape[0]},{dist.shape[1]}), {hops} hops: "
-        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (readback + host walk) "
-        f"bound_ms={bms:.6f} ({by}); wall per call: kernel {wall:.4f} ms, plain "
-        f"{plain_wall:.4f} ms")
+        f"kernel_ms={ms:.5f} at max_steps 2048, {times[1024][0]:.5f} at 1024; "
+        f"plain_ms={plain_ms:.5f} (readback + host walk) bound_ms={bms:.6f} ({by}); wall per "
+        f"call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
     return {
         "name": "path_walk", "route": "cuda",
         "source": "tod_tpu_torch/csrc/path_walk.cu",
@@ -446,6 +505,19 @@ def main_path(torch, np, counters):
     t = time.time()
     eng.serve_step_plan(frames[0])  # warm-up: cuDNN plans, kernel loads
     log(f"  warm-up frame {1e3 * (time.time() - t):.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        plan = eng.serve_step_plan(frames[1])
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t = time.perf_counter()
+    check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
+    log(f"  one frame under set_sync_debug_mode('error'): no host synchronisation; "
+        f"enqueued in {enqueue_ms:.2f} ms, plan on the host {1e3 * (time.perf_counter() - t):.2f} "
+        f"ms later, {eng.last_sweeps} sweeps")
 
     reset(counters)
     per_frame, sweeps, n_valid = [], [], []
@@ -574,9 +646,11 @@ def reference_check(torch, np):
         log(f"  frame t={t}: forward max_abs_err={err:.2e} (tol 2e-3); detect valid equal={same_valid}, "
             f"box err={box_err:.2e} (tol 1e-5), class-map cells differing={cls_diff:.2e} (tol 1e-3); "
             f"heights differing={h_diff:.2e} (tol 5e-3), balls err={b_err:.2e} (tol 1e-3); "
-            f"plan equal={plan_eq} (turns tol 1e-6; n={int(plans['cpu'][0][0, 0])}, sweeps {plans['cuda'][1]})")
+            f"plan equal={plan_eq} (turns tol 1e-6; n={int(plans['cpu'][0][0, 0])}, sweeps "
+            f"{int(plans['cuda'][1])} on the card, {int(plans['cpu'][1])} on the CPU)")
         if not (err <= 2e-3 and same_valid and box_err <= 1e-5 and cls_diff <= 1e-3
-                and h_diff <= 5e-3 and b_err <= 1e-3 and plan_eq):
+                and h_diff <= 5e-3 and b_err <= 1e-3 and plan_eq
+                and int(plans["cuda"][1]) == int(plans["cpu"][1])):
             raise AssertionError(f"card and CPU disagree on frame t={t}")
 
 
@@ -656,6 +730,10 @@ def streaming(torch, np, state, counters, k4):
         f"restarts={m['restarts']}, published path {len(path.directions)} directions")
     log(f"  stage p50 ms: {p50} (frame = batch mean; plan = the planner thread's wait "
         f"and decode; dispatch_plan / dispatch_scene = the loop thread in each step)")
+    if "dispatch_plan" in p50:
+        log(f"  dispatch_plan p50 / dispatch_scene p50 = "
+            f"{p50['dispatch_plan'] / p50['dispatch_scene']:.3f} (a planning frame holds the "
+            f"loop's thread no longer than a scene frame when near 1)")
     log(f"  launches over {STREAM_FRAMES} frames: {launches}")
     if m["n_frames"] != STREAM_FRAMES or m["plans_done"] < 4 or not path.directions:
         raise AssertionError(f"streaming run fell short: {m['n_frames']} frames, "
@@ -774,6 +852,43 @@ def ptq(torch, np, f32_engine, frames, counters):
     return launches
 
 
+def host_planner(torch, np, state, counters):
+    """The host-planner mode on the card: the default configuration with the
+    native planner, 8 frames through ``run_supervised``, every frame planned
+    on the host from its f16 height and balls."""
+    from tod_tpu_torch.core.config import PipelineConfig, PlannerConfig
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.server import PathStore
+
+    cfg = PipelineConfig(planner=PlannerConfig(backend="native"))
+    eng = Engine(cfg, state, device="cuda")
+    if eng._plan_on_device_mode:
+        raise AssertionError("backend='native' selected the device planner")
+    store = PathStore()
+    warm_s = eng.warmup()  # the first frame's cuDNN plans and the planner's choice
+    reset(counters)
+    m = eng.run_supervised(lambda: SyntheticSource(cfg.camera, n_frames=N_FRAMES),
+                           n_frames=N_FRAMES, path_store=store, max_restarts=0,
+                           stall_timeout_s=10.0, plan_every=1, max_inflight=2, warmup=False)
+    launches = read(counters)
+    path = store.get()
+    dirs = np.asarray(path.directions, np.float64).reshape(-1, 2)
+    stages = {k: round(v["p50_ms"], 3) for k, v in m["stages"].items() if v.get("n")}
+    log(f"  {m['n_frames']} frames: fps={m['fps']:.3f}, plans_done={m['plans_done']}, "
+        f"warm-up {warm_s:.2f}s {eng.warmup_breakdown}, published path {len(dirs)} directions "
+        f"(magnitudes sum {dirs[:, 0].sum():.3f}); stage p50 ms {stages}; launches {launches}")
+    well_formed = (len(dirs) > 0 and np.isfinite(dirs).all() and (dirs[:, 0] > 0).all()
+                   and (np.abs(dirs[:, 1]) <= np.pi + 1e-6).all())
+    if m["n_frames"] != N_FRAMES or m["plans_done"] < 1 or not well_formed:
+        raise AssertionError(f"host-planner run fell short: {m['n_frames']} frames, "
+                             f"{m['plans_done']} plans, {len(dirs)} directions")
+    if launches["mask_assembly"] != N_FRAMES or launches["relax"] or launches["path_walk"]:
+        raise AssertionError(
+            f"kernels not launched as expected on the host-planner path: {launches}")
+    return launches
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -827,11 +942,13 @@ def main() -> int:
     from tod_tpu_torch.kernels.connections import connection_weights
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
+    from tod_tpu_torch.kernels.relax import bellman_ford_grid
+    from tod_tpu_torch.native import loader
     from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
     # each path's kernels, with their launch counters
     serving = {"mask_assembly": assemble_crop_masks, "connections": connection_weights,
-               "path_walk": walk_path}
+               "relax": bellman_ford_grid, "path_walk": walk_path}
     stream_path = {**serving, "bump_strips": dilate_peaks_strips}
     k4_path = {"bump": dilate_peaks}
     ptq_path = {**serving, "quantize": quantize_tensor_pallas}
@@ -850,6 +967,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.time() - t:.1f}s")
+    t = time.time()
+    if not loader.available():
+        raise AssertionError("the native planner did not build")
+    log(f"  native planner {_build.build_host(loader.SOURCE).name} ready in {time.time() - t:.1f}s")
 
     log("== 3. kernels against their plain versions")
     rng = np.random.default_rng(0)
@@ -857,8 +978,8 @@ def main() -> int:
     floor_ms, _ = time_ms(lambda: torch.cuda._sleep(0), torch)
     log(f"  timing floor (an empty kernel, same method): {floor_ms:.5f} ms")
     kernels = [check_k1(torch, np, rng, device), check_k2(torch, np, rng, device),
-               check_walk(torch, np, rng, device), *check_bump(torch, np, rng, device),
-               check_k5(torch, np, rng, device)]
+               check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
+               *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
 
     log("== 4. main path")
@@ -880,6 +1001,9 @@ def main() -> int:
 
     log("== 9. weight-only PTQ with K5")
     ptq_launches = ptq(torch, np, eng, frames, ptq_path)
+
+    log("== 10. the host-planner mode (native)")
+    host_planner(torch, np, state, serving)
 
     # launches: each kernel's count on the path it belongs to
     launches.update({k: stream_launches[k] for k in ("bump_strips", "bump")})

@@ -2,7 +2,8 @@
 the JAX package's ``Engine.run`` in device-planner mode, ``run_supervised``
 recovering from a stalled source, TODTRACE files across both packages, the
 stage timer, the watchdog, the paced source, ``GetStat`` with live metrics,
-and ``python -m tod_tpu_torch.app`` (``main``) with its refused flags."""
+and ``python -m tod_tpu_torch.app`` (``main``) with its planners and its
+refused flags."""
 
 from __future__ import annotations
 
@@ -49,7 +50,9 @@ def port_engine(flat_weights):
     from tod_tpu_torch.core.weights import carry_across
     from tod_tpu_torch.runtime.engine import Engine
 
-    cfg = tcfg.PipelineConfig(camera=tcfg.CameraConfig(**CAM), model=tcfg.ModelConfig(**MODEL))
+    # the device planner, which "auto" selects only on the card
+    cfg = tcfg.PipelineConfig(camera=tcfg.CameraConfig(**CAM), model=tcfg.ModelConfig(**MODEL),
+                              planner=tcfg.PlannerConfig(backend="tpu"))
     return Engine(cfg, carry_across(flat_weights), device="cpu")
 
 
@@ -251,11 +254,23 @@ def test_main_replays_a_trace(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["n_frames"] == 3
 
 
+@pytest.mark.parametrize("planner", ["numpy", "native"])
+def test_main_plans_on_the_host(planner, capsys, caplog):
+    """``--planner numpy|native`` serve in the host-planner mode: every
+    frame planned from its f16 height and balls, on the host."""
+    caplog.set_level("INFO")
+    rc = main(["--source", "synthetic", "--frames", "2", "--width", "64", "--height", "48",
+               "--planner", planner, "--plan-every", "1", "--no-server", "--metrics-json"],
+              device="cpu")
+    assert rc == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["n_frames"] == 2 and metrics["plans_done"] >= 1
+    assert f"planner {planner}: the {planner} host planner" in caplog.text
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--source", "png"], "PNGSource"),
     (["--source", "ring"], "RingSource"),
-    (["--planner", "numpy"], "host-planner"),
-    (["--planner", "native"], "host-planner"),
     (["--mode", "semantic"], "M9"),
     (["--checkpoint", "ckpt"], "remaining app flags"),
     (["--todx", "a.todx"], "M15"),

@@ -1,9 +1,9 @@
-"""Kernels K1 (mask assembly), K2 (connection weights) and the path walk:
-the port's plain versions against the JAX package (its Pallas kernels in
-interpret mode, and the walk inside ``planner/tpu_relax.py``), and the
-wrappers' CPU behaviour.  The CUDA kernels themselves are held against the
-plain versions on the card (``chip_smoke.py``, and the cases below that skip
-without CUDA)."""
+"""Kernels K1 (mask assembly), K2 (connection weights), the relaxation and
+the path walk: the port's plain versions against the JAX package (its Pallas
+kernels in interpret mode, and the relaxation and walk of
+``planner/tpu_relax.py``), and the wrappers' CPU behaviour.  The CUDA
+kernels themselves are held against the plain versions on the card
+(``chip_smoke.py``, and the cases below that skip without CUDA)."""
 
 from __future__ import annotations
 
@@ -186,3 +186,64 @@ class TestPathWalk:
         assert torch.equal(got[0], want[0]) and torch.equal(got[:, 0], want[:, 0])
         # turns: acosf/atan2f against libm in the last bit
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+class TestRelax:
+    """The relaxation's plain version against the JAX package's
+    ``bellman_ford_grid`` and its wrapper's CPU behaviour; the CUDA kernel is
+    held against the plain version bit for bit on the card."""
+
+    @pytest.mark.parametrize("seed,h,w", [(10, 48, 64), (11, 37, 53)])
+    def test_plain_matches_jax_exactly(self, seed, h, w):
+        from tod_tpu.planner.tpu_relax import bellman_ford_grid as jax_bf
+        from tod_tpu_torch.kernels.relax import plain_bellman_ford_grid
+
+        hm, seeds, dist, nxt, _ = walk_scene(seed, h, w)
+        _, conns = pallas_connections(jnp.asarray(hm), interpret=True)
+        got_d, got_n, sweeps = plain_bellman_ford_grid(
+            torch.from_numpy(hm), torch.from_numpy(np.array(conns)), torch.from_numpy(seeds))
+        np.testing.assert_array_equal(got_d.numpy(), dist)
+        np.testing.assert_array_equal(got_n.numpy(), nxt)
+        jd, _ = jax_bf(jnp.asarray(hm), conns, jnp.asarray(seeds), max_iters=sweeps - 1)
+        np.testing.assert_array_equal(np.asarray(jd), dist)  # the last sweep changed nothing
+        jd, _ = jax_bf(jnp.asarray(hm), conns, jnp.asarray(seeds), max_iters=sweeps - 2)
+        assert not np.array_equal(np.asarray(jd), dist)
+
+    def test_wrapper_on_cpu_returns_a_sweep_tensor(self):
+        from tod_tpu_torch.kernels.relax import bellman_ford_grid, plain_bellman_ford_grid
+
+        hm, seeds, *_ = walk_scene(12)
+        height, seed_mask = torch.from_numpy(hm), torch.from_numpy(seeds)
+        _, conns = connection_weights(height)
+        before = bellman_ford_grid.launches
+        dist, nxt, sweeps = bellman_ford_grid(height, conns, seed_mask, max_iters=300)
+        want = plain_bellman_ford_grid(height, conns, seed_mask, 300)
+        assert sweeps.shape == () and sweeps.dtype == torch.int32 and int(sweeps) == want[2]
+        assert torch.equal(dist, want[0]) and torch.equal(nxt, want[1])
+        assert bellman_ford_grid.launches == before
+        dist0, nxt0, none = bellman_ford_grid(height, conns, seed_mask, max_iters=0)
+        assert int(none) == 0 and torch.equal(dist0 == 0, seed_mask)
+        assert (nxt0 == -1).all()
+
+    def test_wrapper_rejects_bad_arguments(self):
+        from tod_tpu_torch.kernels.relax import bellman_ford_grid
+
+        height, seeds = torch.zeros(4, 5), torch.zeros(4, 5, dtype=torch.bool)
+        with pytest.raises(ValueError):
+            bellman_ford_grid(height, torch.zeros(4, 5, 7), seeds)
+        with pytest.raises(ValueError):
+            bellman_ford_grid(height, torch.zeros(4, 5, 8), seeds[:, :4])
+        with pytest.raises(ValueError):
+            bellman_ford_grid(height, torch.zeros(4, 5, 8), seeds, max_iters=-1)
+
+    @pytest.mark.parametrize("max_iters", [2048, 40])
+    def test_kernel_matches_plain_on_cuda(self, max_iters):
+        require_cuda()
+        from tod_tpu_torch.kernels.relax import bellman_ford_grid, plain_bellman_ford_grid
+
+        hm, seeds, *_ = walk_scene(13)
+        height, seed_mask = torch.from_numpy(hm).cuda(), torch.from_numpy(seeds).cuda()
+        _, conns = connection_weights(height)
+        dist, nxt, sweeps = bellman_ford_grid(height, conns, seed_mask, max_iters)
+        want_d, want_n, want_s = plain_bellman_ford_grid(height, conns, seed_mask, max_iters)
+        assert torch.equal(dist, want_d) and torch.equal(nxt, want_n) and int(sweeps) == want_s

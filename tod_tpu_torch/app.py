@@ -9,9 +9,13 @@ Run as::
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
 ``--max-inflight 2``).  It serves the pinned weights through
-``Engine.run_supervised`` in the device-planner mode, which both
-``--planner auto`` and ``--planner tpu`` select on the card, with the path
-server's ``GetStat`` reporting the engine's fps, stage timers and restarts.
+``Engine.run_supervised``, with the path server's ``GetStat`` reporting the
+engine's fps, stage timers and restarts.  ``--planner`` picks the mode as
+the JAX package does: ``tpu``, and ``auto`` on the card, plan on the device
+(the relaxation and walk kernels); ``numpy`` and ``native``, and ``auto`` on
+the CPU, read the f16 height and the balls back and plan on the host, with
+the C++ planner (built with g++ at first use) or its NumPy fallback; a host
+``auto`` takes native when it builds.  The log names the planner taken.
 Flags and values of features the port does not have yet exit with a message
 naming their item in ``ROADMAP.md``.
 """
@@ -73,8 +77,6 @@ def _refuse_unported(args) -> None:
     refused = (
         (args.source == "png", "--source png", "B: PNGSource"),
         (args.source == "ring", "--source ring", "B: RingSource (the native ring)"),
-        (args.planner in ("numpy", "native"), f"--planner {args.planner}",
-         "B: the host-planner mode"),
         (args.mode == "semantic", "--mode semantic", "B, M9: semantic mode"),
         (args.checkpoint is not None, "--checkpoint", "B: the remaining app flags"),
         (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
@@ -107,6 +109,7 @@ def main(argv=None, device=None) -> int:
         ServerConfig,
     )
     from tod_tpu_torch.core.weights import load_pinned
+    from tod_tpu_torch.planner.api import host_backend
     from tod_tpu_torch.runtime.engine import Engine
     from tod_tpu_torch.runtime.frame_source import SyntheticSource, TraceSource
     from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
@@ -117,7 +120,8 @@ def main(argv=None, device=None) -> int:
     cfg = PipelineConfig(
         camera=cam,
         model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8)),
-        planner=PlannerConfig(signed_turns=args.signed_turns, start_offset=args.start_offset),
+        planner=PlannerConfig(backend=args.planner, signed_turns=args.signed_turns,
+                              start_offset=args.start_offset),
         server=ServerConfig(host=args.host, port=args.port),
     )
 
@@ -128,6 +132,10 @@ def main(argv=None, device=None) -> int:
         return SyntheticSource(cam, n_frames=args.frames)
 
     engine = Engine(cfg, load_pinned(cfg=cfg.model), device=device)
+    if engine._plan_on_device_mode:
+        logging.info("planner %s: the device planner on %s", args.planner, engine.device)
+    else:
+        logging.info("planner %s: the %s host planner", args.planner, host_backend(args.planner))
     store = PathStore()
     server_thread = server = None
     if not args.no_server:

@@ -3,8 +3,8 @@
 A copy of the dataclasses in the JAX package's ``core/config.py`` that the port's main
 path reads, with the same defaults: camera 640x480, the ``yolact_mnv2_fpn``
 model at a 256x320 input in bfloat16, the fusion constants of the reference
-shaders and the device planner's limits.  Fields of features the port does
-not run yet (int8, tracking, training, host planners) arrive with them.
+shaders and the planner's backends and limits.  Fields of features the port
+does not run yet (int8, tracking, training) arrive with them.
 """
 
 from __future__ import annotations
@@ -74,16 +74,32 @@ class GeometryConfig:
     pallas_bump: bool = False
 
 
+PLANNER_BACKENDS = ("auto", "native", "numpy", "tpu")
+
+
 @dataclasses.dataclass(frozen=True)
 class PlannerConfig:
-    """Multi-source shortest-path planner; the port serves the device
-    planner (Bellman-Ford to a fixpoint, then the path walk)."""
+    """Multi-source shortest-path planner.
+
+    ``backend`` selects the host C++ Dijkstra (``native``), its NumPy
+    fallback (``numpy``), or the relaxation on the device (``tpu``: the
+    card, here).  ``auto`` plans on the device when the engine serves on
+    the card, and on the host otherwise: native when its library builds,
+    NumPy if not.
+    """
 
     max_seed_balls: int = 3
+    backend: str = "auto"  # "auto" | "native" | "numpy" | "tpu"
     start_offset: int = 240  # start column = W - start_offset
     tpu_max_iters: int = 2048  # relaxation sweep cap
     max_path_steps: int = 2048  # path-walk step cap
     min_ball_pixels: float = 3.0
+    # Native height backend: bidirectional Dial-bucket search (forward from
+    # the seeds, backward from the start, stopping when the frontiers'
+    # bucket lower bounds cross the best meeting cost): the same optimal
+    # cost with about half the settled nodes of the early-exit forward
+    # pass.  Ties on the path may resolve differently.
+    bidirectional: bool = True
     # False: unsigned angle between segments (reference parity);
     # True: signed turn from the carried heading.
     signed_turns: bool = False
@@ -121,6 +137,8 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append("anchor_scales must have one entry per FPN level")
     if cfg.model.backbone != "mobilenetv2":
         problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
+    if cfg.planner.backend not in PLANNER_BACKENDS:
+        problems.append(f"planner.backend {cfg.planner.backend!r} is not one of {PLANNER_BACKENDS}")
     if cfg.planner.max_seed_balls < 1:
         problems.append("planner.max_seed_balls must be >= 1")
     if cfg.planner.start_offset < 1:

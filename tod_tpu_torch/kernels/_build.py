@@ -5,7 +5,8 @@ Hopper (``sm_90a``) into ``build/tod_tpu_torch/`` at the repository root.  The
 file name carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  A build writes to a temporary
 name and renames it into place, so concurrent builders need no lock file.
-Several sources build in parallel, one nvcc process each.
+Several sources build in parallel, one nvcc process each.  ``build_host``
+takes the same route with g++ for the host's C++ (the native planner).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,11 +47,33 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+def _hashed_path(src: pathlib.Path, flags: tuple[str, ...]) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> pathlib.Path:
+    return _hashed_path(CSRC / f"{name}.cu", NVCC_FLAGS)
+
+
+def _start(cmd: list[str], src: pathlib.Path, out: pathlib.Path):
+    """Start compiling ``src`` into a temporary file beside ``out``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(proc, tmp: pathlib.Path, out: pathlib.Path) -> tuple[str, bool]:
+    """Wait for a compile; rename its output into place -> (log, ok)."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return log, False
+    os.replace(tmp, out)
+    return log, True
 
 
 def build(names: Iterable[str]) -> dict[str, str]:
@@ -61,24 +85,28 @@ def build(names: Iterable[str]) -> dict[str, str]:
     jobs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, out))
+        if not out.exists():
+            jobs.append((name, *_start([find_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", out), out))
     logs, failed = {}, []
     for name, proc, tmp, out in jobs:
-        logs[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
+        logs[name], ok = _finish(proc, tmp, out)
+        if not ok:
             failed.append(f"{name} (exit {proc.returncode}):\n{logs[name]}")
-        else:
-            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def build_host(src: pathlib.Path) -> pathlib.Path:
+    """Compile a host C++ source with g++ (``$CXX`` if set) into a shared
+    library in ``BUILD_DIR`` unless it is there; returns its path, raises
+    with g++'s output if the compile fails."""
+    out = _hashed_path(src, GXX_FLAGS)
+    if not out.exists():
+        log, ok = _finish(*_start([os.environ.get("CXX", "g++"), *GXX_FLAGS], src, out), out)
+        if not ok:
+            raise RuntimeError(f"g++ failed for {src.name}:\n{log}")
+    return out
 
 
 def load(name: str, signatures: Mapping[str, tuple[list, object]]) -> ctypes.CDLL:

@@ -3,8 +3,9 @@ the plan buffer.
 
 Counterpart of the walk inside the JAX package's ``planner/tpu_relax.py``
 (``plan_on_device``), which XLA runs on the device.  On a CUDA tensor the
-wrapper launches ``csrc/path_walk.cu``, so only the plan leaves the card; on
-a CPU tensor it runs the plain version below.
+wrapper launches ``csrc/path_walk.cu`` (pointer doubling over the grid, then
+one thread a plan row), so only the plan leaves the card; on a CPU tensor it
+runs the plain version below.
 """
 
 from __future__ import annotations
@@ -16,12 +17,12 @@ import torch
 
 from tod_tpu_torch.core.types import NEIGHBOR_OFFSETS
 from tod_tpu_torch.kernels import _build
+from tod_tpu_torch.kernels.relax import INF
 
 SOURCE = "path_walk"
 SIGNATURES = {
-    "tod_path_walk": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
+    "tod_path_walk": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int),
 }
-INF = 3.4e38  # the relaxation's "unreached" distance (f32)
 
 
 def plain_walk_path(dist: torch.Tensor, next_dir: torch.Tensor, start_yx, max_steps: int,
@@ -100,11 +101,13 @@ def walk_path(dist: torch.Tensor, next_dir: torch.Tensor, start_yx, max_steps: i
             or not dist.is_contiguous() or not next_dir.is_contiguous()):
         raise ValueError(f"dist must be contiguous float32 and next_dir contiguous int64 on {dist.device}")
     plan = torch.empty((max_steps + 1, 2), dtype=torch.float32, device=dist.device)
+    levels = max(1, max_steps.bit_length())  # 2**levels > max_steps
+    succ = torch.empty(levels * h * w, dtype=torch.int32, device=dist.device)
     lib = _build.load(SOURCE, SIGNATURES)
     with torch.cuda.device(dist.device):
         err = lib.tod_path_walk(
-            dist.data_ptr(), next_dir.data_ptr(), plan.data_ptr(), w, sy * w + sx,
-            max_steps, int(signed), torch.cuda.current_stream().cuda_stream,
+            dist.data_ptr(), next_dir.data_ptr(), succ.data_ptr(), plan.data_ptr(), h * w, w,
+            sy * w + sx, max_steps, levels, int(signed), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "path_walk launch")
     walk_path.launches += 1

@@ -1,0 +1,132 @@
+"""The planner's relaxation: Bellman-Ford over the 8-neighbour grid to a
+fixpoint, then the next-hop argmin.
+
+Counterpart of ``bellman_ford_grid`` in the JAX package's
+``planner/tpu_relax.py``, a ``lax.while_loop`` that XLA keeps on the
+device.  On a CUDA tensor the wrapper launches ``csrc/relax.cu``, one
+cooperative kernel for the whole loop, and reads nothing back; on a CPU
+tensor it runs the plain version below.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tod_tpu_torch.core.types import NEIGHBOR_OFFSETS
+from tod_tpu_torch.kernels import _build
+
+SOURCE = "relax"
+SIGNATURES = {
+    "tod_relax": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+}
+INF = 3.4e38  # "unreached" (f32)
+CHECK_EVERY = 16  # sweeps per convergence readback in the plain version
+
+
+def _shifted(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """(8, H, W) stack with out[i][p] = x[p + NEIGHBOR_OFFSETS[i]], ``fill`` off-grid."""
+    h, w = x.shape
+    padded = F.pad(x[None, None], (1, 1, 1, 1), value=fill)[0, 0]
+    return torch.stack(
+        [padded[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w] for dy, dx in NEIGHBOR_OFFSETS]
+    )
+
+
+def plain_bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
+                            seed_mask: torch.Tensor, max_iters: int = 2048):
+    """The plain version -> (dist, next_dir, sweeps as an int).
+
+    Each sweep updates, over the 8 directions at once,
+
+        dist[n] = min(dist[n], min_i dist[n + off_i] + connections[n][i] + |dheight|)
+
+    The JAX graph tests for a change after every sweep inside its while
+    loop; here the host would have to read a flag back per sweep, so the loop
+    runs ``CHECK_EVERY`` sweeps per block, records each sweep's change flag,
+    and reads the block's flags at once.  Sweeps past the fixpoint change
+    nothing, so the distances and the count are those of the JAX loop.
+    """
+    height = height.to(torch.float32)
+    edge = connections.to(torch.float32).permute(2, 0, 1)
+    has_edge = edge >= 0
+    dh = torch.abs(height - _shifted(height, 0.0))
+
+    def candidates(dist):
+        return torch.where(has_edge, _shifted(dist, INF) + edge + dh, INF)
+
+    dist = torch.where(seed_mask, 0.0, INF).to(torch.float32)
+    sweeps = 0
+    while sweeps < max_iters:
+        flags = []
+        for _ in range(min(CHECK_EVERY, max_iters - sweeps)):
+            new = torch.minimum(dist, candidates(dist).amin(dim=0))
+            flags.append((new < dist).any())
+            dist = new
+        changed = torch.stack(flags).cpu().numpy()
+        if not changed.all():
+            sweeps += int(np.argmin(changed)) + 1
+            break
+        sweeps += len(flags)
+    best = candidates(dist).argmin(dim=0)
+    next_dir = torch.where(seed_mask | ~(dist < INF), -1, best)
+    return dist, next_dir, sweeps
+
+
+def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
+                      seed_mask: torch.Tensor, max_iters: int = 2048):
+    """height (H, W) f32, connections (H, W, 8) f32 (-1 = no edge), seed_mask
+    (H, W) bool -> (dist (H, W) f32, next_dir (H, W) int64, sweeps).
+
+    ``next_dir[p]`` is the NEIGHBOR_OFFSETS index of the next hop toward the
+    nearest seed, -1 at seeds and unreached nodes.  ``sweeps``, a 0-dim int32
+    tensor on the maps' device, counts the sweeps the JAX while loop would
+    run: up to and including the first one that changes nothing, at most
+    ``max_iters``.  On the card nothing is read back: ``int(sweeps)`` waits
+    for the kernel.
+    """
+    h, w = height.shape
+    max_iters = int(max_iters)
+    if connections.shape != (h, w, 8) or seed_mask.shape != (h, w) or max_iters < 0:
+        raise ValueError(
+            f"expected height (H, W), connections (H, W, 8), seed_mask (H, W) and max_iters "
+            f">= 0, got {tuple(height.shape)}, {tuple(connections.shape)}, "
+            f"{tuple(seed_mask.shape)}, {max_iters}"
+        )
+    dev = height.device
+    if dev.type == "cpu":
+        dist, next_dir, sweeps = plain_bellman_ford_grid(height, connections, seed_mask, max_iters)
+        return dist, next_dir, torch.tensor(sweeps, dtype=torch.int32)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    tensors = (height, connections, seed_mask)
+    if (height.dtype != torch.float32 or connections.dtype != torch.float32
+            or seed_mask.dtype != torch.bool or any(t.device != dev for t in tensors)
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"height and connections must be contiguous float32 and seed_mask "
+                         f"contiguous bool, all on {dev}")
+    if connections.data_ptr() % 16:
+        raise ValueError("connections buffer is not 16-byte aligned")
+    dist = torch.empty((h, w), dtype=torch.float32, device=dev)
+    next_dir = torch.empty((h, w), dtype=torch.int64, device=dev)
+    sweeps = torch.empty((), dtype=torch.int32, device=dev)
+    if h * w == 0:  # the plain loop's first sweep finds nothing to change
+        return dist, next_dir, sweeps.fill_(min(1, max_iters))
+    scratch = torch.empty_like(dist)
+    flags = torch.empty(max_iters + 1, dtype=torch.int32, device=dev)
+    lib = _build.load(SOURCE, SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.tod_relax(
+            height.data_ptr(), connections.data_ptr(), seed_mask.data_ptr(), dist.data_ptr(),
+            scratch.data_ptr(), next_dir.data_ptr(), flags.data_ptr(), sweeps.data_ptr(),
+            h, w, max_iters, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "relax launch")
+    bellman_ford_grid.launches += 1
+    return dist, next_dir, sweeps
+
+
+bellman_ford_grid.launches = 0

@@ -8,20 +8,27 @@ the depth as little-endian u16) in, one ``(max_path_steps + 1, 2)`` f32 plan
 buffer out.  It runs eagerly on the engine's device: preprocess, the YOLACT
 forward in ``ModelConfig.dtype``, detection cleanup (kernel K1), the
 occupancy map (kernel K3 with ``GeometryConfig.pallas_bump``) and ball
-centroids, then the planner (kernel K2 for its edges, the path walk kernel).
+centroids, then the planner (kernel K2 for its edges, the relaxation
+kernel, the path walk kernel).
 The JAX graph dead-codes the scene's connection/pos maps that nothing reads;
 here they are simply not computed on this path.
 
-``run`` streams a frame source through it in the JAX package's device-planner
-mode: every ``plan_every``-th frame through ``serve_step_plan``, the others
-through ``serve_step_scene``; a CUDA event recorded after each frame stands
-in for ``block_until_ready``.  Three helper threads touch no device tensor:
-the uploader packs frames into (pinned) host memory, the planner waits on a
-plan's event and decodes its host copy, the latency sampler waits on frame
-events.  The relaxation reads its convergence flags back every 16 sweeps,
-so a planning frame holds the loop's thread until its plan is settled,
-whatever ``max_inflight`` allows.  The JAX package's ``probe_rtt`` measures
-a remote TPU transport and has no counterpart on a local card.
+``run`` streams a frame source through it in one of the JAX package's two
+modes, chosen by ``PlannerConfig.backend`` as the JAX package chooses:
+``tpu``, or ``auto`` on the card, is the device-planner mode (every
+``plan_every``-th frame through ``serve_step_plan``, the others through
+``serve_step_scene``); ``numpy``, ``native``, or ``auto`` on the CPU, is
+the host-planner mode (every frame through ``serve_step_packed``, whose f16
+height and f32 ball bytes a planning frame reads back for
+``planner.api.plan_from_height``).  A CUDA event recorded after each frame
+stands in for ``block_until_ready``.  Three helper threads touch no device
+tensor: the uploader packs frames into (pinned) host memory, the planner
+waits on a readback's event and plans or decodes its host copy, the latency
+sampler waits on frame events.  On the card a planning frame only enqueues
+work (the relaxation and the walk are kernels that read nothing back), so
+``max_inflight`` bounds planning frames as it bounds the others.  The JAX
+package's ``probe_rtt`` measures a remote TPU transport and has no
+counterpart on a local card.
 """
 
 from __future__ import annotations
@@ -38,13 +45,16 @@ from torch.profiler import record_function
 
 from tod_tpu_torch.core.config import PipelineConfig, validate
 from tod_tpu_torch.core.device import resolve_device
-from tod_tpu_torch.core.types import Path
+from tod_tpu_torch.core.types import Detections, Frame, Path, Scene
 from tod_tpu_torch.core.weights import check_state, load_pinned
-from tod_tpu_torch.geometry.fusion import ball_centroids, occupancy_map
+from tod_tpu_torch.geometry.fusion import ball_centroids, fuse_scene, occupancy_map
 from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
-from tod_tpu_torch.ops.preprocess import preprocess_frame, unpack_frame
-from tod_tpu_torch.planner.relax import plan_on_device, start_node_yx
+from tod_tpu_torch.ops.packing import unpack_height_balls
+from tod_tpu_torch.ops.preprocess import pack_frame, preprocess_frame, unpack_frame
+from tod_tpu_torch.planner.api import host_backend, materialize_path, plan_from_height
+from tod_tpu_torch.planner.dijkstra import start_node_yx
+from tod_tpu_torch.planner.relax import plan_on_device
 from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
 
 
@@ -74,15 +84,24 @@ class Engine:
         cam = self.cfg.camera
         self.cam_hw = (cam.height, cam.width)
         self.start_yx = start_node_yx(self.cam_hw, offset=self.cfg.planner.start_offset)
-        self.last_sweeps: int | None = None
+        # the JAX package's rule, with the card in place of the TPU
+        backend = self.cfg.planner.backend
+        self._plan_on_device_mode = backend == "tpu" or (
+            backend == "auto" and self.device.type == "cuda")
+        self._sweeps: torch.Tensor | None = None
         self.timer = StageTimer()
         self.fps = FPSMeter()
         self.restarts = 0
         self._abort = False
 
-    @torch.inference_mode()
-    def serve_step_scene(self, packed: torch.Tensor):
-        """Packed frame -> (height (H, W) f32, balls (max_balls, 4) f32).
+    @property
+    def last_sweeps(self) -> int | None:
+        """The relaxation sweeps of the last device plan (None before one).
+        Read when asked: on the card it waits for that plan's relaxation."""
+        return None if self._sweeps is None else int(self._sweeps)
+
+    def _step(self, packed: torch.Tensor) -> tuple[torch.Tensor, Detections]:
+        """Packed frame -> (depth (H, W) int32 mm, detections).
 
         Each stage runs inside a ``stage/<name>`` profiler range, which a
         profiler (``chip_smoke.py``) reads and which costs nothing without one.
@@ -94,6 +113,12 @@ class Engine:
             out = self.model(x)
         with record_function("stage/detect"):
             dets = detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
+        return depth, dets
+
+    @torch.inference_mode()
+    def serve_step_scene(self, packed: torch.Tensor):
+        """Packed frame -> (height (H, W) f32, balls (max_balls, 4) f32)."""
+        depth, dets = self._step(packed)
         with record_function("stage/fusion"):
             cam, geom = self.cfg.camera, self.cfg.geometry
             height = occupancy_map(depth, dets.class_map, cam, geom)
@@ -101,16 +126,44 @@ class Engine:
         return height, balls
 
     @torch.inference_mode()
+    def serve_step_packed(self, packed: torch.Tensor) -> torch.Tensor:
+        """The host-planner mode's step: packed frame -> one uint8 buffer,
+        the height map as f16 bytes, then the ball slots as f32 bytes (the
+        JAX package's ``_serve_step_packed``); ``_unpack_plan_buffer``
+        decodes its host copy."""
+        height, balls = self.serve_step_scene(packed)
+        return torch.cat([height.to(torch.float16).reshape(-1).view(torch.uint8),
+                          balls.to(torch.float32).reshape(-1).view(torch.uint8)])
+
+    def serve_step(self, rgb, depth) -> torch.Tensor:
+        """:meth:`serve_step_packed` on an unpacked frame: rgb (H, W, 3)
+        uint8 and depth (H, W) uint16, as numpy arrays."""
+        return self.serve_step_packed(torch.from_numpy(pack_frame(rgb, depth)))
+
+    @torch.inference_mode()
+    def process(self, frame: Frame) -> tuple[Scene, Detections]:
+        """One frame -> (the full scene, its detections) on the device."""
+        depth, dets = self._step(torch.from_numpy(pack_frame(frame.rgb, frame.depth)))
+        scene = fuse_scene(depth, dets.class_map, dets.id_map, self.cfg.camera, self.cfg.geometry)
+        return scene, dets
+
+    def _unpack_plan_buffer(self, buf) -> tuple[np.ndarray, np.ndarray]:
+        """Host copy of a :meth:`serve_step_packed` buffer -> (height f16,
+        balls f32) numpy arrays."""
+        return unpack_height_balls(buf, *self.cam_hw)
+
+    @torch.inference_mode()
     def serve_step_plan(self, packed: torch.Tensor) -> torch.Tensor:
         """Packed frame -> (max_path_steps + 1, 2) f32 plan buffer; the
-        relaxation's sweep count lands in ``self.last_sweeps``."""
+        relaxation's sweep count is ``self.last_sweeps``."""
         return self.plan_scene(*self.serve_step_scene(packed))
 
     @torch.inference_mode()
     def plan_scene(self, height: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
-        """The device planner on one scene -> the plan buffer."""
+        """The device planner on one scene -> the plan buffer.  On the card
+        this enqueues work and reads nothing back."""
         pcfg = self.cfg.planner
-        plan, self.last_sweeps = plan_on_device(
+        plan, self._sweeps = plan_on_device(
             height, balls, self.start_yx,
             max_seeds=pcfg.max_seed_balls,
             min_pixels=pcfg.min_ball_pixels,
@@ -126,12 +179,19 @@ class Engine:
                            pin_memory=self.device.type == "cuda")
 
     def warmup(self) -> float:
-        """Serve one all-zero frame through both steps (cuDNN plans, kernel
-        builds and loads); returns seconds, per step in ``warmup_breakdown``."""
+        """Serve one all-zero frame through the mode's steps (cuDNN plans,
+        kernel builds and loads; in the host-planner mode also the host
+        planner's choice and native build); returns seconds, per step in
+        ``warmup_breakdown``."""
         breakdown: dict[str, float] = {}
         t_total = time.perf_counter()
-        for name, step in (("serve_step_scene", self.serve_step_scene),
-                           ("serve_step_plan", self.serve_step_plan)):
+        if self._plan_on_device_mode:
+            steps = (("serve_step_scene", self.serve_step_scene),
+                     ("serve_step_plan", self.serve_step_plan))
+        else:
+            steps = (("serve_step_packed", self.serve_step_packed),
+                     ("host_planner", lambda _: host_backend(self.cfg.planner.backend)))
+        for name, step in steps:
             t0 = time.perf_counter()
             step(self._packed_zeros())
             if self.device.type == "cuda":
@@ -147,6 +207,14 @@ class Engine:
         host = torch.empty(plan.shape, dtype=plan.dtype, pin_memory=True)
         host.copy_(plan, non_blocking=True)
         return host, _record_event()
+
+    def _plan_payload(self, out):
+        """What the planner thread gets for the output of a step: the device
+        plan's readback, or in the host-planner mode the readback of the
+        packed height and balls."""
+        if self._plan_on_device_mode:
+            return self._readback(self.plan_scene(*out))
+        return self._readback(out)
 
     def run(
         self,
@@ -177,6 +245,8 @@ class Engine:
             watchdog.heartbeat()  # set-up is not a stall
         planner = _PlannerWorker(self, path_store) if plan_paths else None
         uploader = _UploadWorker(source, n_frames, pin=self.device.type == "cuda")
+        serve_fn = self.serve_step_scene if self._plan_on_device_mode else self.serve_step_packed
+        plan_fn = self.serve_step_plan if self._plan_on_device_mode else self.serve_step_packed
         sampler = _LatencySampler(self.timer)
         inflight: deque = deque()
         n_done = batch_n = 0
@@ -195,11 +265,11 @@ class Engine:
             plan_frame = planner is not None and plan_every is not None and n_done % plan_every == 0
             if plan_frame:
                 with self.timer.stage("dispatch_plan"):
-                    out = self.serve_step_plan(item)
+                    out = plan_fn(item)
                 planner.submit(self._readback(out))
             else:
                 with self.timer.stage("dispatch_scene"):
-                    out = self.serve_step_scene(item)
+                    out = serve_fn(item)
             done = _record_event() if self.device.type == "cuda" else None
             if max_inflight is not None:
                 inflight.append(done)
@@ -213,7 +283,7 @@ class Engine:
             if batch_n >= sync_every:
                 _wait(done)
                 if planner is not None and plan_every is None:
-                    planner.submit(self._readback(self.plan_scene(*out)))
+                    planner.submit(self._plan_payload(out))
                 t_batch = self._record_batch(t_batch, batch_n)
                 if watchdog is not None:
                     watchdog.heartbeat()
@@ -224,7 +294,7 @@ class Engine:
         if out is not None and batch_n:
             _wait(done)
             if planner is not None and plan_every is None:
-                planner.submit(self._readback(self.plan_scene(*out)))
+                planner.submit(self._plan_payload(out))
             self._record_batch(t_batch, batch_n)
         wall = time.perf_counter() - t_start
         uploader.close()
@@ -374,8 +444,9 @@ class _UploadWorker:
 
 
 class _PlannerWorker:
-    """Depth-1 latest-plan thread (drop-old): waits for a plan's copy to
-    reach the host, decodes it and publishes it to the path store."""
+    """Depth-1 latest-plan thread (drop-old): waits for a readback to reach
+    the host, then decodes the device plan or, in the host-planner mode,
+    plans from the height and balls, and publishes the path."""
 
     def __init__(self, engine: Engine, path_store):
         self.engine = engine
@@ -403,7 +474,11 @@ class _PlannerWorker:
                 (host, done), self._slot = self._slot, None
             with self.engine.timer.stage("plan"):
                 _wait(done)
-                path = Path.from_plan(host.numpy())
+                if self.engine._plan_on_device_mode:
+                    path = materialize_path(host)
+                else:
+                    height, balls = self.engine._unpack_plan_buffer(host)
+                    path = plan_from_height(height, balls, self.engine.cfg.planner)
             self.n_planned += 1
             self.last_path = path
             if self.path_store is not None:
