@@ -56,7 +56,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (an FMA counts two)
+# one add, compare or select per lane per clock: 132 SMs x 128 lanes x 1.98 GHz
+ALU_OPS = 33.5e12
 N_FRAMES = 8
 STREAM_FRAMES = 16
 
@@ -97,9 +99,11 @@ def time_ms(fn, torch, n: int = 50, warmup: int = 5) -> tuple[float, float]:
     return statistics.median(a.elapsed_time(b) for a, b in events), wall
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations over
+    ``ops_per_s`` (f32 FLOP/s, or ``ALU_OPS`` for work without FMAs)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -213,28 +217,41 @@ def relax_inputs(torch, np, rng, device, h, w, seeds):
 def check_relax(torch, np, rng, device):
     """The relaxation kernel against ``plain_bellman_ford_grid`` on the card:
     distances bit for bit, next hops and the sweep count equal, at VGA, QVGA,
-    a ragged map and a seedless one, and at VGA with max_iters = sweeps - 2."""
-    from tod_tpu_torch.kernels.relax import bellman_ford_grid, plain_bellman_ford_grid
+    a map its tiles do not divide (479x641), one with more tiles than
+    co-resident blocks (960x1280), a small ragged map and a seedless one, and
+    at VGA with max_iters 0, 1, k + 1, sweeps - 1 and sweeps - 2."""
+    from tod_tpu_torch.kernels.relax import (bellman_ford_grid, plain_bellman_ford_grid,
+                                             relax_tiling)
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     main = None
     cases = [((480, 640), [(20, 100), (200, 600)]), ((240, 320), [(10, 300), (120, 40), (239, 5)]),
+             ((479, 641), [(20, 100), (200, 600)]),
+             ((960, 1280), [(40, 200), (400, 1200), (900, 30)]),
              ((37, 53), [(3, 40)]), ((37, 53), [])]
     for (h, w), seeds in cases:
         args = relax_inputs(torch, np, rng, device, h, w, seeds)
-        runs = [(None, *plain_bellman_ford_grid(*args))]
+        t = relax_tiling(h, w, sms)
+        route = "resident" if t.tiles <= t.blocks else "looping"
+        log(f"  relax tiling at ({h},{w}) on {sms} SMs: tile {t.tile_h}x{t.tile_w}, k={t.k}, "
+            f"{t.tiles} tiles on {t.blocks} blocks ({route}), {t.smem_bytes} bytes of shared "
+            "memory a block")
+        runs = [(2048, *plain_bellman_ford_grid(*args))]
         if main is None:
-            runs.append((runs[0][3] - 2, *plain_bellman_ford_grid(*args, max_iters=runs[0][3] - 2)))
+            full = runs[0][3]
+            for cap in (0, 1, t.k + 1, full - 1, full - 2):
+                runs.append((cap, *plain_bellman_ford_grid(*args, max_iters=cap)))
         for max_iters, want_d, want_n, want_s in runs:
-            kw = {} if max_iters is None else {"max_iters": max_iters}
-            dist, nxt, sweeps = bellman_ford_grid(*args, **kw)
+            dist, nxt, sweeps = bellman_ford_grid(*args, max_iters=max_iters)
             torch.cuda.synchronize()
             ok = (torch.equal(dist, want_d) and torch.equal(nxt, want_n)
                   and int(sweeps) == want_s)
-            log(f"  relax H,W=({h},{w}) seeds={len(seeds)} max_iters={max_iters or 2048}: "
+            log(f"  relax H,W=({h},{w}) seeds={len(seeds)} max_iters={max_iters}: "
                 f"sweeps {int(sweeps)} (plain {want_s}), dist bitwise and next_dir equal={ok} "
                 f"(tol exact), reached={int((want_d < 3.4e38).sum())}")
             if not ok:
-                raise AssertionError(f"the relaxation disagrees with its plain version at {(h, w)}")
+                raise AssertionError(f"the relaxation disagrees with its plain version at "
+                                     f"{(h, w)}, max_iters={max_iters}")
         if main is None:
             main = args, runs[0][3]
     args, sweeps = main
@@ -243,11 +260,12 @@ def check_relax(torch, np, rng, device):
     plain_ms, plain_wall = time_ms(lambda: plain_bellman_ford_grid(*args), torch, n=5, warmup=1)
     # inputs read once (height, 8 edges, the seed byte), dist, next_dir and
     # the count written once; 8 candidates x 3 operations a node a sweep,
-    # and once more for the argmin
-    bms, by = bound_ms(h * w * (4 + 32 + 1 + 4 + 8) + 4, 24.0 * h * w * (sweeps + 1))
-    log(f"  relax times at ({h},{w}), {sweeps} sweeps: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"bound_ms={bms:.6f} ({by}; the {sweeps} grid barriers are not in it); wall per "
-        f"call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+    # and once more for the argmin, none of them an FMA
+    bms, by = bound_ms(h * w * (4 + 32 + 1 + 4 + 8) + 4, 24.0 * h * w * (sweeps + 1), ALU_OPS)
+    t = relax_tiling(h, w, sms)
+    log(f"  relax times at ({h},{w}), {sweeps} sweeps, {-(-sweeps // t.k) + 1} grid barriers: "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bms:.6f} ({by}; the barriers "
+        f"are not in it); wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
     return {
         "name": "relax", "route": "cuda", "source": "tod_tpu_torch/csrc/relax.cu",
         "replaces": "tod_tpu/planner/tpu_relax.py:50",

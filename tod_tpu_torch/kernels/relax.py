@@ -5,12 +5,15 @@ Counterpart of ``bellman_ford_grid`` in the JAX package's
 ``planner/tpu_relax.py``, a ``lax.while_loop`` that XLA keeps on the
 device.  On a CUDA tensor the wrapper launches ``csrc/relax.cu``, one
 cooperative kernel for the whole loop, and reads nothing back; on a CPU
-tensor it runs the plain version below.
+tensor it runs the plain version below.  ``relax_tiling`` chooses the
+kernel's tiles and batch depth from the map's shape and the SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,10 +24,90 @@ from tod_tpu_torch.kernels import _build
 
 SOURCE = "relax"
 SIGNATURES = {
-    "tod_relax": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+    "tod_relax": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
 }
 INF = 3.4e38  # "unreached" (f32)
 CHECK_EVERY = 16  # sweeps per convergence readback in the plain version
+K = 8  # Jacobi sweeps per grid barrier (the ghost ring's width)
+MAX_K = 32  # the kernel reads a batch's change flags as one warp's ballot
+NODE_BYTES = 44  # shared memory a region node takes: 8 edges, height, 2 distances
+THREADS = 512  # threads a block, csrc/relax.cu's TOD_THREADS
+SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
+
+
+def smem_bytes(tile_h: int, tile_w: int, k: int, threads: int = THREADS) -> int:
+    """A block's shared memory: the region's nodes, and a word a thread and
+    ring for its share of each ring's sweeps."""
+    return NODE_BYTES * (tile_h + 2 * k) * (tile_w + 2 * k) + 4 * k * threads
+
+
+def region_fits(tile_h: int, tile_w: int, k: int, threads: int = THREADS) -> bool:
+    """Whether the kernel takes the region: one column a thread (its width
+    less the outer ring at most ``threads``), a column in 10 bits of the
+    sweep plan and a row in 11."""
+    rh, rw = tile_h + 2 * k, tile_w + 2 * k
+    return rw - 2 <= threads and rw <= 1023 and rh <= 2047
+
+
+class Tiling(NamedTuple):
+    """How ``csrc/relax.cu`` cuts a map: ``tile_h`` x ``tile_w`` tiles, each
+    held with a ring ``k`` nodes wide, ``blocks`` co-resident blocks (one a
+    tile when ``tiles <= blocks``, else each loops over several)."""
+
+    tile_h: int
+    tile_w: int
+    k: int
+    tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def _sides(n: int) -> list[int]:
+    """The distinct tile sides ceil(n / m) for m = 1..n."""
+    return sorted({-(-n // m) for m in range(1, n + 1)})
+
+
+@functools.lru_cache(maxsize=64)
+def relax_tiling(h: int, w: int, sms: int, k: int = K,
+                 tile: tuple[int, int] | None = None) -> Tiling:
+    """The tiling of an (h, w) map for a card with ``sms`` SMs, one block an SM.
+
+    With ``tile`` None it takes, among the tiles that fit ``SMEM_LIMIT``
+    and ``region_fits``, the one whose blocks sweep the fewest nodes (tiles
+    a block x region, each region row counted in whole warps of 32: the
+    kernel's warps walk its columns), preferring tilings that give every
+    tile a block of its own.  Ties go to fewer tiles.  The choice depends on
+    the arguments alone.
+    """
+    if min(h, w, sms, k) < 1 or k > MAX_K:
+        raise ValueError(f"relax_tiling needs h, w, sms >= 1 and 1 <= k <= {MAX_K}, got "
+                         f"{(h, w, sms, k)}")
+
+    def tiling(th: int, tw: int) -> Tiling:
+        tiles = -(-h // th) * -(-w // tw)
+        return Tiling(th, tw, k, tiles, min(tiles, sms), smem_bytes(th, tw, k))
+
+    if tile is not None:
+        got = tiling(*tile)
+    else:
+        best = None
+        for th in _sides(h):
+            for tw in _sides(w):
+                t = tiling(th, tw)
+                if t.smem_bytes > SMEM_LIMIT or not region_fits(th, tw, k):
+                    continue
+                per_block = -(-t.tiles // sms)
+                warp_nodes = (th + 2 * k) * -(-(tw + 2 * k) // 32) * 32
+                key = (per_block > 1, per_block * warp_nodes, t.tiles)
+                if best is None or key < best[0]:
+                    best = key, t
+        if best is None:
+            raise ValueError(f"no tile fits {SMEM_LIMIT} bytes of shared memory at k={k}")
+        got = best[1]
+    if got.smem_bytes > SMEM_LIMIT or not region_fits(got.tile_h, got.tile_w, k):
+        raise ValueError(f"tiling {got} needs more than {SMEM_LIMIT} bytes of shared memory "
+                         f"or a region wider than {THREADS + 2} nodes")
+    return got
 
 
 def _shifted(x: torch.Tensor, fill: float) -> torch.Tensor:
@@ -76,6 +159,11 @@ def plain_bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
     return dist, next_dir, sweeps
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
                       seed_mask: torch.Tensor, max_iters: int = 2048):
     """height (H, W) f32, connections (H, W, 8) f32 (-1 = no edge), seed_mask
@@ -117,12 +205,14 @@ def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
         return dist, next_dir, sweeps.fill_(min(1, max_iters))
     scratch = torch.empty_like(dist)
     flags = torch.empty(max_iters + 1, dtype=torch.int32, device=dev)
+    t = relax_tiling(h, w, _sm_count(dev))
     lib = _build.load(SOURCE, SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.tod_relax(
             height.data_ptr(), connections.data_ptr(), seed_mask.data_ptr(), dist.data_ptr(),
             scratch.data_ptr(), next_dir.data_ptr(), flags.data_ptr(), sweeps.data_ptr(),
-            h, w, max_iters, torch.cuda.current_stream().cuda_stream,
+            h, w, max_iters, t.tile_h, t.tile_w, t.k, t.blocks,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "relax launch")
     bellman_ford_grid.launches += 1

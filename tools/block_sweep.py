@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""Time the relaxation and path-walk kernels at several block shapes.
+"""Time the relaxation and path-walk kernels at several shapes.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``python3 tools/block_sweep.py``.  Each kernel's source is compiled once per
-shape (threads per block, resident blocks per SM) with ``-DTOD_THREADS``
-and ``-DTOD_BLOCKS_PER_SM`` into ``build/tod_tpu_torch/sweep/``, its output is
-checked against the committed kernel's on the same inputs, and its device
-time is the median of CUDA events over 20 calls (50 for the walk), as
-``chip_smoke.py`` times kernels.  The inputs are ``chip_smoke.py``'s: a
+``python3 tools/block_sweep.py``.
+
+- The relaxation is compiled once per block size (``-DTOD_THREADS``) and run
+  at several tilings: the batch depth k (sweeps per grid barrier) with the
+  tile ``relax_tiling`` picks for it, and a few tiles given outright.  Beside
+  each time it prints the **barrier floor**: the time of an empty
+  cooperative kernel (``tools/grid_barrier.cu``) that takes the same number
+  of grid barriers on the same grid (blocks, threads, shared memory).
+- The walk is compiled once per (threads per block, resident blocks per SM)
+  with ``-DTOD_THREADS`` and ``-DTOD_BLOCKS_PER_SM``.
+
+Every build goes into ``build/tod_tpu_torch/sweep/``; every output is
+checked against the committed kernel's on the same inputs, and a device time
+is the median of CUDA events over 20 calls (50 for the walk and the floor),
+as ``chip_smoke.py`` times kernels.  The inputs are ``chip_smoke.py``'s: a
 480x640 rolling height map with two seeds, and the walk from the robot's
 start node over its relaxation with max_steps 2048.
 """
@@ -21,10 +30,11 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SHAPES = {  # (threads per block, blocks per SM)
-    "relax": [(256, 8), (256, 2), (512, 2), (512, 1), (1024, 1)],
-    "path_walk": [(256, 8), (256, 1), (512, 1), (1024, 2), (1024, 1)],
-}
+RELAX_THREADS = [256, 512, 1024]
+RELAX_K = [2, 4, 8, 12, 16]  # each with relax_tiling's tile
+# (k, tile) given outright
+RELAX_TILES = [(8, (40, 59)), (8, (60, 40)), (8, (20, 120)), (6, (30, 80)), (9, (30, 80))]
+WALK_SHAPES = [(256, 8), (256, 1), (512, 1), (1024, 2), (1024, 1)]  # (threads, blocks per SM)
 
 
 def main() -> int:
@@ -37,7 +47,8 @@ def main() -> int:
     from tod_tpu_torch.kernels.path_walk import SIGNATURES as WALK_SIG
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import SIGNATURES as RELAX_SIG
-    from tod_tpu_torch.kernels.relax import bellman_ford_grid
+    from tod_tpu_torch.kernels.relax import (SMEM_LIMIT, bellman_ford_grid, region_fits,
+                                             relax_tiling, smem_bytes)
     from tod_tpu_torch.planner.dijkstra import start_node_yx
 
     if not torch.cuda.is_available():
@@ -46,75 +57,114 @@ def main() -> int:
     out = _build.BUILD_DIR / "sweep"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, shapes in SHAPES.items():
-        for threads, per_sm in shapes:
-            so = out / f"lib{name}_{threads}_{per_sm}.so"
-            cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-DTOD_THREADS={threads}",
-                   f"-DTOD_BLOCKS_PER_SM={per_sm}", "-o", str(so), str(_build.CSRC / f"{name}.cu")]
-            jobs[name, threads, per_sm] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
-    fns, regs = {}, {}
+
+    def start(key, src, defines):
+        so = out / ("lib" + "_".join(map(str, key)) + ".so")
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(so), str(src)]
+        jobs[key] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), so
+
+    for threads in RELAX_THREADS:
+        start(("relax", threads), _build.CSRC / "relax.cu", [f"-DTOD_THREADS={threads}"])
+    for threads, per_sm in WALK_SHAPES:
+        start(("path_walk", threads, per_sm), _build.CSRC / "path_walk.cu",
+              [f"-DTOD_THREADS={threads}", f"-DTOD_BLOCKS_PER_SM={per_sm}"])
+    start(("grid_barrier",), ROOT / "tools" / "grid_barrier.cu", [])
+    libs, regs = {}, {}
     for key, (proc, so) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        regs[key] = re.search(r"Used (\d+) registers", log).group(1)
-        signatures = RELAX_SIG if key[0] == "relax" else WALK_SIG
+        found = re.findall(r"Used (\d+) registers", log)
+        regs[key] = found[0] if found else "?"
+        libs[key] = ctypes.CDLL(str(so))
+    for key, lib in libs.items():
+        signatures = {"relax": RELAX_SIG, "path_walk": WALK_SIG}.get(key[0], {
+            "tod_grid_barriers": ([ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)})
         entry, (argtypes, restype) = next(iter(signatures.items()))
-        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, restype
-        fns[key] = fn
+        libs[key] = fn
     print(chip_smoke.nvidia_smi_line(), flush=True)
 
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(0)
     height, conns, seed = chip_smoke.relax_inputs(torch, np, rng, dev, 480, 640,
                                                   [(20, 100), (200, 600)])
     h, w = height.shape
     want = bellman_ford_grid(height, conns, seed)
+    n_sweeps = int(want[2])
 
-    def relax(fn):
+    def relax(fn, t):
         dist, scratch = (torch.empty((h, w), dtype=torch.float32, device=dev) for _ in range(2))
         next_dir = torch.empty((h, w), dtype=torch.int64, device=dev)
         sweeps = torch.empty((), dtype=torch.int32, device=dev)
         flags = torch.empty(2049, dtype=torch.int32, device=dev)
         err = fn(height.data_ptr(), conns.data_ptr(), seed.data_ptr(), dist.data_ptr(),
                  scratch.data_ptr(), next_dir.data_ptr(), flags.data_ptr(), sweeps.data_ptr(),
-                 h, w, 2048, stream)
+                 h, w, 2048, t.tile_h, t.tile_w, t.k, t.blocks, stream)
         if err:
             raise RuntimeError(f"relax launch failed: CUDA error {err}")
         return dist, next_dir, sweeps
 
-    dist, next_dir, n_sweeps = want
-    start = start_node_yx((h, w), 240)
-    plan_want = walk_path(dist, next_dir, start, 2048)
+    def barriers(threads, t, n):
+        err = libs["grid_barrier",](t.blocks, threads, t.smem_bytes, n, stream)
+        if err:
+            raise RuntimeError(f"grid_barrier launch failed: CUDA error {err}")
+
+    tilings = [relax_tiling(h, w, sms, k) for k in RELAX_K]
+    tilings += [relax_tiling(h, w, sms, k, tile) for k, tile in RELAX_TILES]
+    print(f"relax at ({h},{w}), {n_sweeps} sweeps, {sms} SMs; the committed tiling is "
+          f"{relax_tiling(h, w, sms)}", flush=True)
+    for threads in RELAX_THREADS:
+        fn = libs["relax", threads]
+        for t in tilings:
+            smem = smem_bytes(t.tile_h, t.tile_w, t.k, threads)
+            if smem > SMEM_LIMIT or not region_fits(t.tile_h, t.tile_w, t.k, threads):
+                print(f"relax threads={threads} k={t.k} tile={t.tile_h}x{t.tile_w}: does not "
+                      f"fit ({smem} bytes of shared memory)", flush=True)
+                continue
+            t = t._replace(smem_bytes=smem)
+            got = relax(fn, t)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms, _ = chip_smoke.time_ms(lambda: relax(fn, t), torch, n=20, warmup=2)
+            n_bar = -(-n_sweeps // t.k) + 1
+            floor, _ = chip_smoke.time_ms(lambda: barriers(threads, t, n_bar), torch)
+            print(f"relax threads={threads} ({regs['relax', threads]} registers) k={t.k} "
+                  f"tile={t.tile_h}x{t.tile_w} tiles={t.tiles} blocks={t.blocks} "
+                  f"smem={t.smem_bytes}: {ms:.5f} ms, {1e3 * ms / n_sweeps:.3f} us a sweep; "
+                  f"barrier floor {floor:.5f} ms for {n_bar} barriers "
+                  f"({1e3 * floor / n_bar:.3f} us each); equal to the committed kernel={same}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"relax at {threads} threads, {t} disagrees with the "
+                                     "committed kernel")
+
+    dist, next_dir, _ = want
+    start_yx = start_node_yx((h, w), 240)
+    plan_want = walk_path(dist, next_dir, start_yx, 2048)
     levels = (2048).bit_length()
 
     def walk(fn):
         plan = torch.empty((2049, 2), dtype=torch.float32, device=dev)
         succ = torch.empty(levels * h * w, dtype=torch.int32, device=dev)
         err = fn(dist.data_ptr(), next_dir.data_ptr(), succ.data_ptr(), plan.data_ptr(), h * w, w,
-                 start[0] * w + start[1], 2048, levels, 0, stream)
+                 start_yx[0] * w + start_yx[1], 2048, levels, 0, stream)
         if err:
             raise RuntimeError(f"path_walk launch failed: CUDA error {err}")
         return plan
 
-    for (name, threads, per_sm), fn in fns.items():
-        if name == "relax":
-            got = relax(fn)
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            ms, _ = chip_smoke.time_ms(lambda: relax(fn), torch, n=20, warmup=2)
-            extra = f", {1e3 * ms / int(n_sweeps):.3f} us a sweep over {int(n_sweeps)} sweeps"
-        else:
-            same = torch.equal(walk(fn), plan_want)
-            ms, _ = chip_smoke.time_ms(lambda: walk(fn), torch)
-            extra = f", {int(plan_want[0, 0])} hops"
-        print(f"{name} threads={threads} blocks/SM<={per_sm} "
-              f"({regs[name, threads, per_sm]} registers): {ms:.5f} ms{extra}; "
-              f"equal to the committed kernel={same}", flush=True)
+    for threads, per_sm in WALK_SHAPES:
+        fn = libs["path_walk", threads, per_sm]
+        same = torch.equal(walk(fn), plan_want)
+        ms, _ = chip_smoke.time_ms(lambda: walk(fn), torch)
+        print(f"path_walk threads={threads} blocks/SM<={per_sm} "
+              f"({regs['path_walk', threads, per_sm]} registers): {ms:.5f} ms, "
+              f"{int(plan_want[0, 0])} hops; equal to the committed kernel={same}", flush=True)
         if not same:
-            raise AssertionError(f"{name} at {threads}x{per_sm} disagrees with the committed "
+            raise AssertionError(f"path_walk at {threads}x{per_sm} disagrees with the committed "
                                  "kernel")
     return 0
 
