@@ -10,8 +10,8 @@ Phases, each printed as it ends:
    process per source, all at once, and of the native host planner with g++;
 3. each kernel (mask assembly, connection weights, the relaxation, the path
    walk, the terrain dilation K3/K4, the stochastic quantizer K5) against its
-   plain torch version on the card, at the main path's shapes and a ragged
-   shape, and its device time (CUDA events, median of 50 calls after a
+   plain torch version on the card, at the main path's shapes and ragged
+   ones, and its device time (CUDA events, median of 50 calls after a
    warm-up, enqueued behind a sleep kernel) beside the plain version's and a
    library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
@@ -36,7 +36,11 @@ Phases, each printed as it ends:
    dequantized, carried across and served for 4 frames;
 10. the host-planner mode: the default configuration with
    ``PlannerConfig(backend="native")`` streamed through ``run_supervised``
-   for 8 frames, every frame planned by the native planner on the host.
+   for 8 frames, every frame planned by the native planner on the host;
+11. each kernel's own device time: the median duration of its kernel over
+   50 more calls of phase 3's timed call, from ``torch.profiler`` (last,
+   since a profiler session leaves the host slower at launching and the
+   phases before are timed on the host).
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -99,6 +103,68 @@ def time_ms(fn, torch, n: int = 50, warmup: int = 5) -> tuple[float, float]:
     return statistics.median(a.elapsed_time(b) for a, b in events), wall
 
 
+def own_ms(torch, calls, n: int = 50) -> tuple[float | None, list[float | None]]:
+    """Own device times from ``torch.profiler`` (CUPTI): (an empty kernel's,
+    and for each ``(call, kernel name)`` the median over ``n`` calls of the
+    summed duration of the kernels one call launches whose name holds the
+    kernel name).  One profiler session for all, since a session can miss
+    launches near its start: each call is made once before any is counted,
+    then each in turn ``n`` times behind an empty kernel (``spin_kernel``,
+    which no call launches), and the device's activities are split at the
+    empty kernels.  None where the profiler did not record the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn, _ in calls:
+            fn()
+        for _ in range(n):
+            torch.cuda._sleep(0)
+        for fn, _ in calls:
+            torch.cuda._sleep(0)
+            for _ in range(n):
+                fn()
+        torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+    device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    empty = [d for _, d, name in device if "spin_kernel" in name]
+    runs, run = [], None  # the activities between empty kernels
+    for _, d, name in device:
+        if "spin_kernel" in name:
+            run = None
+        elif run is None:
+            run = [(d, name)]
+            runs.append(run)
+        else:
+            run.append((d, name))
+    floor = statistics.median(empty) / 1e3 if empty else None
+    if len(runs) != len(calls) + 1:  # the warm-up calls, then one run a call
+        return floor, [None] * len(calls)
+    result = []
+    for (_, kernel), run in zip(calls, runs[1:]):
+        spans = [d for d, name in run if kernel in name]
+        per = len(spans) // n
+        result.append(statistics.median(sum(spans[i * per : (i + 1) * per]) for i in range(n))
+                      / 1e3 if spans and len(spans) % n == 0 else None)
+    return floor, result
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
+
+
+def own_times(torch, kernels, floor_ms: float) -> None:
+    """Set each kernel row's ``own_ms`` from its ``own`` entry (the call and
+    the kernel's name), beside an empty kernel's."""
+    floor, own = own_ms(torch, [k.pop("own") for k in kernels])
+    for k, ms in zip(kernels, own):
+        k["own_ms"] = ms
+    log(f"  own device ms (median of 50 calls, torch.profiler; an empty kernel {fmt(floor)}, "
+        f"{floor_ms:.5f} by events): "
+        + ", ".join(f"{k['name']} {fmt(k['own_ms'])} (events {k['ms']:.5f})" for k in kernels))
+
+
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     """The larger of the bytes over the memory rate and the operations over
     ``ops_per_s`` (f32 FLOP/s, or ``ALU_OPS`` for work without FMAs)."""
@@ -107,29 +173,47 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_FLOPS) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_k1(torch, np, rng, device):
-    from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks, plain_assemble_crop_masks
+def k1_inputs(torch, np, gen, device, b, hm, wm, k, n):
+    """K1's prototypes (B, Hm, Wm, K), coefficients (B, N, K) and boxes
+    (B, N, 4), drawn from ``gen``: ReLU'd prototypes, tanh coefficients, and
+    boxes that reach past the image's edges."""
+    protos = np.maximum(gen.normal(0, 1, (b, hm, wm, k)), 0).astype(np.float32)
+    coeffs = np.tanh(gen.normal(0, 1, (b, n, k))).astype(np.float32)
+    c = gen.uniform(-0.1, 1.1, (b, n, 2))
+    s = gen.uniform(0.05, 0.6, (b, n, 2))
+    boxes = np.concatenate([c - s / 2, c + s / 2], axis=-1).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (protos, coeffs, boxes)]
 
-    def inputs(b, hm, wm, k, n):
-        protos = np.maximum(rng.normal(0, 1, (b, hm, wm, k)), 0).astype(np.float32)
-        coeffs = np.tanh(rng.normal(0, 1, (b, n, k))).astype(np.float32)
-        c = rng.uniform(-0.1, 1.1, (b, n, 2))
-        s = rng.uniform(0.05, 0.6, (b, n, 2))
-        boxes = np.concatenate([c - s / 2, c + s / 2], axis=-1).astype(np.float32)
-        return [torch.from_numpy(a).to(device) for a in (protos, coeffs, boxes)]
+
+def check_k1(torch, np, rng, device):
+    from tod_tpu_torch.core.device import sm_count
+    from tod_tpu_torch.kernels.mask_assembly import (
+        assemble_crop_masks,
+        mask_tiling,
+        plain_assemble_crop_masks,
+    )
 
     tol = 2e-6  # expf vs torch's sigmoid in the last bits; the crop is exact
     worst = 0.0
     main = None
-    for shape in ((1, 64, 80, 32, 32), (2, 13, 17, 5, 7)):
-        args = inputs(*shape)
+    # B, Hm, Wm, K, N: the main path; odd K; pixels not a multiple of the
+    # tile; N = 1 and 33; B = 2; fewer pixels than a warp.  The first two
+    # draw from ``rng`` and the others from their own generator, so that
+    # the later checks' inputs do not depend on these shapes.
+    extra = np.random.default_rng(1)
+    for i, shape in enumerate(((1, 64, 80, 32, 32), (2, 13, 17, 5, 7), (1, 37, 53, 32, 32),
+                               (1, 64, 80, 32, 1), (1, 64, 80, 32, 33), (2, 64, 80, 32, 32),
+                               (1, 3, 5, 4, 3))):
+        args = k1_inputs(torch, np, rng if i < 2 else extra, device, *shape)
         got = assemble_crop_masks(*args)
         want = plain_assemble_crop_masks(*args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         same_crop = torch.equal(got == 0, want == 0)
+        t = mask_tiling(shape[0], shape[1] * shape[2], shape[4], shape[3], sm_count(device))
         log(f"  K1 mask_assembly B,Hm,Wm,K,N={shape}: max_abs_err={err:.3e} "
-            f"(tol {tol:g}), crop identical={same_crop}")
+            f"(tol {tol:g}), crop identical={same_crop}; {t.blocks} blocks of {t.pixels} "
+            f"pixels x {t.groups} detection groups, {t.smem_bytes} bytes of shared memory")
         if not (err <= tol and same_crop):
             raise AssertionError(f"K1 disagrees with its plain version at {shape}")
         worst = max(worst, err)
@@ -145,49 +229,64 @@ def check_k1(torch, np, rng, device):
         & (xs[None, :] >= boxes[..., 1, None, None]) & (xs[None, :] <= boxes[..., 3, None, None])
     ).reshape(b, n, hm * wm)
     protos2d = protos.reshape(b, hm * wm, k)
-    ms, wall = time_ms(lambda: assemble_crop_masks(protos, coeffs, boxes), torch)
+    kernel = lambda: assemble_crop_masks(protos, coeffs, boxes)  # noqa: E731
+    ms, wall = time_ms(kernel, torch)
     plain_ms, plain_wall = time_ms(lambda: plain_assemble_crop_masks(protos, coeffs, boxes), torch)
     library_ms, _ = time_ms(
         lambda: torch.where(inside, torch.sigmoid(coeffs @ protos2d.transpose(1, 2)), 0.0), torch
     )
     n_bytes = 4 * (protos.numel() + coeffs.numel() + boxes.numel() + b * n * hm * wm)
     bms, by = bound_ms(n_bytes, 2.0 * b * n * hm * wm * k)
-    log(f"  K1 times at {tuple(protos.shape)}: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} bound_ms={bms:.6f} ({by}); wall per call: kernel "
-        f"{wall:.4f} ms, plain {plain_wall:.4f} ms")
+    log(f"  K1 times at {tuple(protos.shape)}: kernel_ms={ms:.5f} "
+        f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={bms:.6f} ({by}); wall "
+        f"per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
     return {
         "name": "mask_assembly", "route": "cuda",
         "source": "tod_tpu_torch/csrc/mask_assembly.cu",
         "replaces": "tod_tpu/kernels/mask_assembly.py:61",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "own": (kernel, "mask_assembly_kernel"),
     }
 
 
 def check_k2(torch, np, rng, device):
-    from tod_tpu_torch.kernels.connections import connection_weights, plain_connection_weights
+    from tod_tpu_torch.core.device import sm_count
+    from tod_tpu_torch.kernels.connections import (
+        connection_planes,
+        connection_tiling,
+        connection_weights,
+        plain_connection_planes,
+        plain_connection_weights,
+    )
 
     def same(a, b):
         return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
     main = None
-    for h, w in ((480, 640), (37, 53)):
-        hm = rng.uniform(0, 300, (h, w)).astype(np.float32)
-        hm[rng.random((h, w)) < 0.01] = np.nan
+    extra = np.random.default_rng(2)  # as in check_k1: only the first two draw from rng
+    for i, (h, w) in enumerate(((480, 640), (37, 53), (479, 641), (960, 1280), (1, 1))):
+        gen = rng if i < 2 else extra
+        hm = gen.uniform(0, 300, (h, w)).astype(np.float32)
+        hm[gen.random((h, w)) < 0.01] = np.nan
         height = torch.from_numpy(hm).to(device)
         pos_k, conn_k = connection_weights(height)
         pos_p, conn_p = plain_connection_weights(height)
         torch.cuda.synchronize()
         ok = same(pos_k, pos_p) and same(conn_k, conn_p)
-        log(f"  K2 connections H,W=({h},{w}): bitwise equal={ok} (tol exact)")
+        t = connection_tiling(h, w, sm_count(device))
+        log(f"  K2 connections H,W=({h},{w}): planes and pos bitwise equal={ok} (tol exact); "
+            f"{t.blocks} bands of {t.rows} rows, {t.smem_bytes} bytes of shared memory")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {(h, w)}")
         if main is None:
             main = torch.from_numpy(np.nan_to_num(hm)).to(device)
     h, w = main.shape
-    ms, wall = time_ms(lambda: connection_weights(main), torch)
-    plain_ms, plain_wall = time_ms(lambda: plain_connection_weights(main), torch)
-    bms, by = bound_ms(4 * (h * w + h * w * 11), 8 * 6.0 * h * w)
+    kernel = lambda: connection_planes(main)  # noqa: E731
+    ms, wall = time_ms(kernel, torch)
+    plain_ms, plain_wall = time_ms(lambda: plain_connection_planes(main), torch)
+    # the heights read once, the 8 weights a node written once
+    bms, by = bound_ms(4 * (h * w + 8 * h * w), 8 * 6.0 * h * w)
     log(f"  K2 times at ({h},{w}): kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
         f"bound_ms={bms:.6f} ({by}); wall per call: kernel {wall:.4f} ms, plain "
         f"{plain_wall:.4f} ms")
@@ -197,21 +296,21 @@ def check_k2(torch, np, rng, device):
         "replaces": "tod_tpu/kernels/connections.py:37",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (kernel, "connections_kernel"),
     }
 
 
 def relax_inputs(torch, np, rng, device, h, w, seeds):
     """A rolling height map (a random walk down the rows), its K2 edges and
     a seed map, on ``device``."""
-    from tod_tpu_torch.kernels.connections import connection_weights
+    from tod_tpu_torch.kernels.connections import connection_planes
 
     hm = np.cumsum(rng.normal(0, 0.3, (h, w)), axis=0).astype(np.float32)
     height = torch.from_numpy(hm - hm.min()).to(device)
     seed = torch.zeros((h, w), dtype=torch.bool, device=device)
     for y, x in seeds:
         seed[y, x] = True
-    _, conns = connection_weights(height)
-    return height, conns, seed
+    return height, connection_planes(height), seed
 
 
 def check_relax(torch, np, rng, device):
@@ -271,6 +370,7 @@ def check_relax(torch, np, rng, device):
         "replaces": "tod_tpu/planner/tpu_relax.py:50",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (lambda: bellman_ford_grid(*args), "relax_kernel"),
     }
 
 
@@ -318,6 +418,7 @@ def check_walk(torch, np, rng, device):
         "replaces": "tod_tpu/planner/tpu_relax.py:200",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (lambda: walk_path(dist, nxt, start, 2048), "path_walk_kernel"),
     }
 
 
@@ -414,8 +515,10 @@ def check_bump(torch, np, rng, device):
     common = {"route": "cuda", "source": "tod_tpu_torch/csrc/bump.cu", "max_abs_err": 0.0,
               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
     return [
-        {"name": "bump_strips", "replaces": "tod_tpu/kernels/bump.py:90", "ms": ms, **common},
-        {"name": "bump", "replaces": "tod_tpu/kernels/bump.py:160", "ms": k4_ms, **common},
+        {"name": "bump_strips", "replaces": "tod_tpu/kernels/bump.py:90", "ms": ms, **common,
+         "own": (lambda: dilate_peaks_strips(ext, L, geom.bump_err, shape), "bump_kernel")},
+        {"name": "bump", "replaces": "tod_tpu/kernels/bump.py:160", "ms": k4_ms, **common,
+         "own": (lambda: dilate_peaks(ext, L, geom.bump_err, shape), "bump_kernel")},
     ]
 
 
@@ -480,6 +583,7 @@ def check_k5(torch, np, rng, device):
         "name": "quantize", "route": "cuda", "source": "tod_tpu_torch/csrc/quantize.cu",
         "replaces": "tod_tpu/ops/quantize.py:43", "max_abs_err": 0.0, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (lambda: quantize_tensor_pallas(xd, seed=7), "quantize_kernel"),
     }
 
 
@@ -957,7 +1061,7 @@ def main() -> int:
     from tod_tpu_torch.core.weights import load_pinned
     from tod_tpu_torch.kernels import _build
     from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips
-    from tod_tpu_torch.kernels.connections import connection_weights
+    from tod_tpu_torch.kernels.connections import connection_planes
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import bellman_ford_grid
@@ -965,7 +1069,7 @@ def main() -> int:
     from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
     # each path's kernels, with their launch counters
-    serving = {"mask_assembly": assemble_crop_masks, "connections": connection_weights,
+    serving = {"mask_assembly": assemble_crop_masks, "connections": connection_planes,
                "relax": bellman_ford_grid, "path_walk": walk_path}
     stream_path = {**serving, "bump_strips": dilate_peaks_strips}
     k4_path = {"bump": dilate_peaks}
@@ -1023,12 +1127,15 @@ def main() -> int:
     log("== 10. the host-planner mode (native)")
     host_planner(torch, np, state, serving)
 
+    log("== 11. each kernel's own device time")
+    own_times(torch, kernels, floor_ms)
+
     # launches: each kernel's count on the path it belongs to
     launches.update({k: stream_launches[k] for k in ("bump_strips", "bump")})
     launches["quantize"] = ptq_launches["quantize"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"main path median {frame_ms:.2f} ms/frame; total {time.time() - t_start:.1f}s")

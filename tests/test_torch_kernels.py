@@ -14,7 +14,11 @@ import torch
 
 from tod_tpu.kernels.connections import connection_weights as pallas_connections
 from tod_tpu.kernels.mask_assembly import assemble_crop_masks as pallas_masks
-from tod_tpu_torch.kernels.connections import connection_weights, plain_connection_weights
+from tod_tpu_torch.kernels.connections import (
+    connection_planes,
+    connection_weights,
+    plain_connection_weights,
+)
 from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks, plain_assemble_crop_masks
 from tod_tpu_torch.kernels.path_walk import plain_walk_path, walk_path
 
@@ -72,7 +76,10 @@ class TestMaskAssembly:
         with pytest.raises(ValueError):
             assemble_crop_masks(protos, coeffs[..., :2], boxes)
 
-    @pytest.mark.parametrize("b,hm,wm,k,n", [(1, 64, 80, 32, 32), (2, 13, 17, 5, 7)])
+    @pytest.mark.parametrize("b,hm,wm,k,n", [
+        (1, 64, 80, 32, 32), (2, 13, 17, 5, 7), (1, 37, 53, 32, 32), (1, 64, 80, 32, 1),
+        (1, 64, 80, 32, 33), (2, 64, 80, 32, 32), (1, 3, 5, 4, 3),
+    ])
     def test_kernel_matches_plain_on_cuda(self, b, hm, wm, k, n):
         require_cuda()
         args = [torch.from_numpy(a).cuda() for a in k1_inputs(3, b, hm, wm, k, n)]
@@ -93,13 +100,13 @@ class TestConnections:
 
     def test_wrapper_on_cpu_runs_plain_version(self):
         hm = torch.from_numpy(k2_height(5, 12, 10))
-        before = connection_weights.launches
+        before = connection_planes.launches
         pos, conns = connection_weights(hm)
         pos_p, conns_p = plain_connection_weights(hm)
         assert conns.shape == (12, 10, 8) and pos.shape == (12, 10, 3)
         torch.testing.assert_close(conns, conns_p, atol=0, rtol=0, equal_nan=True)
         torch.testing.assert_close(pos, pos_p, atol=0, rtol=0, equal_nan=True)
-        assert connection_weights.launches == before
+        assert connection_planes.launches == before
         # off-grid neighbours are -1: the top row has no N, NE, NW edges
         assert (conns[0, :, [0, 1, 7]] == -1).all()
 
@@ -107,7 +114,7 @@ class TestConnections:
         with pytest.raises(ValueError):
             connection_weights(torch.zeros(2, 3, 4))
 
-    @pytest.mark.parametrize("h,w", [(480, 640), (37, 53)])
+    @pytest.mark.parametrize("h,w", [(480, 640), (37, 53), (479, 641), (960, 1280), (1, 1)])
     def test_kernel_matches_plain_on_cuda(self, h, w):
         require_cuda()
         hm = torch.from_numpy(k2_height(6, h, w, nan_frac=0.01)).cuda()

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,3 +19,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain versions"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The SM count of a CUDA device, which the kernels' tilings take."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,14 +48,19 @@ def find_nvcc() -> str:
     )
 
 
-def _hashed_path(src: pathlib.Path, flags: tuple[str, ...]) -> pathlib.Path:
+def _hashed_path(src: pathlib.Path, flags: tuple[str, ...],
+                 headers: Iterable[pathlib.Path] = ()) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in headers:
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def library_path(name: str) -> pathlib.Path:
-    return _hashed_path(CSRC / f"{name}.cu", NVCC_FLAGS)
+    """The library of ``csrc/<name>.cu``; its hash covers every ``csrc/*.cuh``
+    header too, so an edited header rebuilds the sources."""
+    return _hashed_path(CSRC / f"{name}.cu", NVCC_FLAGS, sorted(CSRC.glob("*.cuh")))
 
 
 def _start(cmd: list[str], src: pathlib.Path, out: pathlib.Path):

@@ -19,8 +19,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tod_tpu_torch.core.device import sm_count
 from tod_tpu_torch.core.types import NEIGHBOR_OFFSETS
 from tod_tpu_torch.kernels import _build
+from tod_tpu_torch.kernels._build import SMEM_LIMIT
 
 SOURCE = "relax"
 SIGNATURES = {
@@ -32,7 +34,6 @@ K = 8  # Jacobi sweeps per grid barrier (the ghost ring's width)
 MAX_K = 32  # the kernel reads a batch's change flags as one warp's ballot
 NODE_BYTES = 44  # shared memory a region node takes: 8 edges, height, 2 distances
 THREADS = 512  # threads a block, csrc/relax.cu's TOD_THREADS
-SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
 
 
 def smem_bytes(tile_h: int, tile_w: int, k: int, threads: int = THREADS) -> int:
@@ -159,11 +160,6 @@ def plain_bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
     return dist, next_dir, sweeps
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
                       seed_mask: torch.Tensor, max_iters: int = 2048):
     """height (H, W) f32, connections (H, W, 8) f32 (-1 = no edge), seed_mask
@@ -205,7 +201,7 @@ def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
         return dist, next_dir, sweeps.fill_(min(1, max_iters))
     scratch = torch.empty_like(dist)
     flags = torch.empty(max_iters + 1, dtype=torch.int32, device=dev)
-    t = relax_tiling(h, w, _sm_count(dev))
+    t = relax_tiling(h, w, sm_count(dev))
     lib = _build.load(SOURCE, SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.tod_relax(

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from tod_tpu_torch.kernels.connections import connection_weights
+from tod_tpu_torch.kernels.connections import connection_planes
 from tod_tpu_torch.kernels.path_walk import walk_path
 from tod_tpu_torch.kernels.relax import bellman_ford_grid
 from tod_tpu_torch.ops.nms import top_k
@@ -49,7 +49,7 @@ def plan_on_device(height: torch.Tensor, balls: torch.Tensor, start_yx: tuple[in
     with record_function("stage/relaxation"):
         height = height.to(torch.float32).contiguous()
         seeds = _seed_mask(balls, height.shape, max_seeds, min_pixels)
-        _, conns = connection_weights(height)
+        conns = connection_planes(height)
         dist, next_dir, sweeps = bellman_ford_grid(height, conns, seeds, max_iters)
     with record_function("stage/walk"):
         plan = walk_path(dist, next_dir, start_yx, max_steps, signed)

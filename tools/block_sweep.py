@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the relaxation and path-walk kernels at several shapes.
+"""Time the relaxation, path-walk, mask-assembly (K1) and connection (K2)
+kernels at several shapes.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``python3 tools/block_sweep.py``.
+``python3 tools/block_sweep.py [relax] [walk] [k1] [k2]`` (all four when
+none is named).
 
 - The relaxation is compiled once per block size (``-DTOD_THREADS``) and run
   at several tilings: the batch depth k (sweeps per grid barrier) with the
@@ -12,13 +14,21 @@ Run from the repository root on a machine with an NVIDIA GPU:
   of grid barriers on the same grid (blocks, threads, shared memory).
 - The walk is compiled once per (threads per block, resident blocks per SM)
   with ``-DTOD_THREADS`` and ``-DTOD_BLOCKS_PER_SM``.
+- K1 runs at several (pixels a block, detection groups) and K2 at several
+  band heights: both are launch arguments of the committed libraries.  K2
+  runs by both of its staging routes: the committed library's, and the
+  same source built with ``-DTOD_K2_BULK=0`` (coalesced loads only).  Each
+  time is printed beside the kernel's own time (``chip_smoke.own_ms``, all of
+  a kernel's shapes in one profiler session, before the event times).
 
 Every build goes into ``build/tod_tpu_torch/sweep/``; every output is
 checked against the committed kernel's on the same inputs, and a device time
 is the median of CUDA events over 20 calls (50 for the walk and the floor),
 as ``chip_smoke.py`` times kernels.  The inputs are ``chip_smoke.py``'s: a
 480x640 rolling height map with two seeds, and the walk from the robot's
-start node over its relaxation with max_steps 2048.
+start node over its relaxation with max_steps 2048; K1's are 1x64x80x32
+prototypes with 32 detections made as ``chip_smoke.py`` makes them (seed 0),
+and K2's that 480x640 height map.
 """
 
 from __future__ import annotations
@@ -35,15 +45,23 @@ RELAX_K = [2, 4, 8, 12, 16]  # each with relax_tiling's tile
 # (k, tile) given outright
 RELAX_TILES = [(8, (40, 59)), (8, (60, 40)), (8, (20, 120)), (6, (30, 80)), (9, (30, 80))]
 WALK_SHAPES = [(256, 8), (256, 1), (512, 1), (1024, 2), (1024, 1)]  # (threads, blocks per SM)
+K1_TILES = [(32, 2), (32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 4)]  # (pixels, groups)
+K2_ROWS = [1, 2, 3, 4, 6, 8]
+SECTIONS = ("relax", "walk", "k1", "k2")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    sections = set(argv) or set(SECTIONS)
+    if not sections <= set(SECTIONS):
+        print(f"block_sweep: sections are {SECTIONS}, got {argv}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
 
     import chip_smoke
     from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels.connections import SIGNATURES as K2_SIG
     from tod_tpu_torch.kernels.path_walk import SIGNATURES as WALK_SIG
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import SIGNATURES as RELAX_SIG
@@ -64,12 +82,15 @@ def main() -> int:
         jobs[key] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                      text=True), so
 
-    for threads in RELAX_THREADS:
+    for threads in RELAX_THREADS if "relax" in sections else ():
         start(("relax", threads), _build.CSRC / "relax.cu", [f"-DTOD_THREADS={threads}"])
-    for threads, per_sm in WALK_SHAPES:
+    for threads, per_sm in WALK_SHAPES if "walk" in sections else ():
         start(("path_walk", threads, per_sm), _build.CSRC / "path_walk.cu",
               [f"-DTOD_THREADS={threads}", f"-DTOD_BLOCKS_PER_SM={per_sm}"])
-    start(("grid_barrier",), ROOT / "tools" / "grid_barrier.cu", [])
+    if "relax" in sections:
+        start(("grid_barrier",), ROOT / "tools" / "grid_barrier.cu", [])
+    if "k2" in sections:
+        start(("connections", "coalesced"), _build.CSRC / "connections.cu", ["-DTOD_K2_BULK=0"])
     libs, regs = {}, {}
     for key, (proc, so) in jobs.items():
         log, _ = proc.communicate()
@@ -79,8 +100,8 @@ def main() -> int:
         regs[key] = found[0] if found else "?"
         libs[key] = ctypes.CDLL(str(so))
     for key, lib in libs.items():
-        signatures = {"relax": RELAX_SIG, "path_walk": WALK_SIG}.get(key[0], {
-            "tod_grid_barriers": ([ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)})
+        signatures = {"relax": RELAX_SIG, "path_walk": WALK_SIG, "connections": K2_SIG}.get(
+            key[0], {"tod_grid_barriers": ([ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)})
         entry, (argtypes, restype) = next(iter(signatures.items()))
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, restype
@@ -114,11 +135,15 @@ def main() -> int:
         if err:
             raise RuntimeError(f"grid_barrier launch failed: CUDA error {err}")
 
-    tilings = [relax_tiling(h, w, sms, k) for k in RELAX_K]
-    tilings += [relax_tiling(h, w, sms, k, tile) for k, tile in RELAX_TILES]
+    if "k1" in sections:
+        k1_sweep(torch, np, dev, sms, stream)
+    if "k2" in sections:
+        k2_sweep(torch, height, sms, stream, libs["connections", "coalesced"])
+    tilings = [relax_tiling(h, w, sms, k) for k in RELAX_K] if "relax" in sections else []
+    tilings += [relax_tiling(h, w, sms, k, tile) for k, tile in RELAX_TILES] if tilings else []
     print(f"relax at ({h},{w}), {n_sweeps} sweeps, {sms} SMs; the committed tiling is "
           f"{relax_tiling(h, w, sms)}", flush=True)
-    for threads in RELAX_THREADS:
+    for threads in RELAX_THREADS if tilings else ():
         fn = libs["relax", threads]
         for t in tilings:
             smem = smem_bytes(t.tile_h, t.tile_w, t.k, threads)
@@ -156,7 +181,7 @@ def main() -> int:
             raise RuntimeError(f"path_walk launch failed: CUDA error {err}")
         return plan
 
-    for threads, per_sm in WALK_SHAPES:
+    for threads, per_sm in WALK_SHAPES if "walk" in sections else ():
         fn = libs["path_walk", threads, per_sm]
         same = torch.equal(walk(fn), plan_want)
         ms, _ = chip_smoke.time_ms(lambda: walk(fn), torch)
@@ -169,5 +194,73 @@ def main() -> int:
     return 0
 
 
+def k1_sweep(torch, np, dev, sms, stream) -> None:
+    import chip_smoke
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels import mask_assembly as k1
+
+    b, hm, wm, k, n = 1, 64, 80, 32, 32
+    protos, coeffs, boxes = chip_smoke.k1_inputs(torch, np, np.random.default_rng(0), dev,
+                                                 b, hm, wm, k, n)
+    want = k1.assemble_crop_masks(protos, coeffs, boxes)
+    fn = _build.load(k1.SOURCE, k1.SIGNATURES).tod_mask_assembly
+    print(f"K1 at {tuple(protos.shape)}, N={n}, {sms} SMs; the committed tiling is "
+          f"{k1.mask_tiling(b, hm * wm, n, k, sms)}", flush=True)
+
+    def masks(pixels, groups):
+        out = torch.empty_like(want)
+        err = fn(protos.data_ptr(), coeffs.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+                 b, n, hm, wm, k, pixels, groups, stream)
+        if err:
+            raise RuntimeError(f"mask_assembly launch failed: CUDA error {err}")
+        return out
+
+    calls = [(lambda p=p, g=g: masks(p, g), "mask_assembly_kernel") for p, g in K1_TILES]
+    _, own = chip_smoke.own_ms(torch, calls)
+    for (pixels, groups), (call, _), own_ms in zip(K1_TILES, calls, own):
+        same = torch.equal(call(), want)
+        ms, _ = chip_smoke.time_ms(call, torch)
+        print(f"K1 pixels={pixels} groups={groups} blocks={b * -(-hm * wm // pixels)} "
+              f"threads={pixels * groups}: {ms:.5f} ms, own {chip_smoke.fmt(own_ms)} ms; "
+              f"equal to the committed tiling={same}", flush=True)
+        if not same:
+            raise AssertionError(f"K1 at {pixels}x{groups} disagrees with the committed tiling")
+
+
+def k2_sweep(torch, height, sms, stream, coalesced) -> None:
+    """K2 at each band height, by both staging routes: the committed
+    library's (a bulk copy a row where the rows allow it) and ``coalesced``,
+    the same source built with ``-DTOD_K2_BULK=0`` (coalesced loads only)."""
+    import chip_smoke
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels import connections as k2
+
+    h, w = height.shape
+    want = k2.connection_planes(height)
+    routes = {"bulk": _build.load(k2.SOURCE, k2.SIGNATURES).tod_connections,
+              "coalesced": coalesced}
+    print(f"K2 at ({h},{w}), {sms} SMs; the committed tiling is "
+          f"{k2.connection_tiling(h, w, sms)}", flush=True)
+
+    def planes(fn, rows):
+        out = torch.empty_like(want)
+        err = fn(height.data_ptr(), out.data_ptr(), h, w, rows, k2.row_stride(w), stream)
+        if err:
+            raise RuntimeError(f"connections launch failed: CUDA error {err}")
+        return out
+
+    cases = [(rows, route) for rows in K2_ROWS for route in routes]
+    calls = [(lambda r=rows, fn=routes[route]: planes(fn, r), "connections_kernel")
+             for rows, route in cases]
+    _, own = chip_smoke.own_ms(torch, calls)
+    for (rows, route), (call, _), own_ms in zip(cases, calls, own):
+        same = torch.equal(call(), want)
+        ms, _ = chip_smoke.time_ms(call, torch)
+        print(f"K2 {route} rows={rows} blocks={-(-h // rows)}: {ms:.5f} ms, own "
+              f"{chip_smoke.fmt(own_ms)} ms; equal to the committed kernel={same}", flush=True)
+        if not same:
+            raise AssertionError(f"K2 {route} at {rows} rows disagrees with the committed kernel")
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

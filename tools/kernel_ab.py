@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Serve and stream with an older commit's K1 and K2 and with this tree's, in
+turns in one process, to tell the two kernels' effect on the host-clock
+metrics apart from the host's run-to-run noise.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+``python3 tools/kernel_ab.py OLD_ROOT [ROUNDS]``, where OLD_ROOT is a
+checkout of a commit from before K1 and K2 were redesigned (for example
+unpacked by ``git archive``).  Its ``tod_tpu_torch/csrc/mask_assembly.cu``
+and ``connections.cu`` are built with this tree's nvcc flags into
+``build/tod_tpu_torch/ab/`` and called through their C interfaces
+(``tod_mask_assembly(protos, coeffs, boxes, out, b, n, hm, wm, k, stream)``,
+``tod_connections(height, conn, pos, h, w, stream)``, the planner keeping
+``conn``); every other module, the Python around both kernels included, is
+this tree's.  The "old" arm binds those two into ``models.yolact`` and
+``planner.relax``; the "new" arm binds this tree's wrappers back.
+
+Each of ROUNDS rounds (default 8) runs each arm once, alternating which goes
+first, on engines built once:
+- serve: ``chip_smoke.N_FRAMES`` frames of ``Engine.serve_step_plan`` at
+  ``PipelineConfig()``, host clock from the call to the plan on the host;
+  the median;
+- stream: ``run_supervised`` at the app's configuration with ``pallas_bump``
+  (model at 480x640), ``chip_smoke.STREAM_FRAMES`` frames, a plan every 4th,
+  2 in flight: fps, ``frame`` p50 and ``dispatch_plan`` p50;
+- host: ``run_supervised`` with the native planner (only K1 on the card),
+  ``chip_smoke.N_FRAMES`` frames, every one planned: fps.
+Before the rounds the old kernels are held against the new ones (K1 within
+2e-6 with an identical crop, K2's planes bit for bit, NaN included), and
+each arm's launches are counted, so that a round ran the kernels it names.
+The last line is a JSON object with every reading by arm and metric.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SIGNATURES = {
+    "mask_assembly": ("tod_mask_assembly", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p]),
+    "connections": ("tod_connections", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p]),
+}
+
+
+def build_old(old_root: pathlib.Path) -> dict:
+    """Compile the old commit's K1 and K2 sources side by side -> entry points."""
+    from tod_tpu_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in SIGNATURES:
+        so = out / f"lib{name}_old.so"
+        src = old_root / "tod_tpu_torch" / "csrc" / f"{name}.cu"
+        jobs[name] = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                                       str(src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True), so
+    fns = {}
+    for name, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the old {name}.cu:\n{log}")
+        entry, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def old_wrappers(torch, fns):
+    """The old kernels behind this tree's wrappers' signatures, each counting
+    its launches."""
+
+    def assemble_crop_masks(protos, coeffs, boxes):
+        b, hm, wm, k = protos.shape
+        n = coeffs.shape[1]
+        out = torch.empty((b, n, hm, wm), dtype=torch.float32, device=protos.device)
+        err = fns["mask_assembly"](protos.data_ptr(), coeffs.data_ptr(), boxes.data_ptr(),
+                                   out.data_ptr(), b, n, hm, wm, k,
+                                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old mask_assembly launch failed: CUDA error {err}")
+        assemble_crop_masks.launches += 1
+        return out
+
+    def connection_planes(height):
+        h, w = height.shape
+        conn = torch.empty((h, w, 8), dtype=torch.float32, device=height.device)
+        pos = torch.empty((h, w, 3), dtype=torch.float32, device=height.device)
+        err = fns["connections"](height.data_ptr(), conn.data_ptr(), pos.data_ptr(), h, w,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old connections launch failed: CUDA error {err}")
+        connection_planes.launches += 1
+        return conn
+
+    assemble_crop_masks.launches = connection_planes.launches = 0
+    return assemble_crop_masks, connection_planes
+
+
+def main(argv: list[str]) -> int:
+    if not 1 <= len(argv) <= 2:
+        print("usage: kernel_ab.py OLD_ROOT [ROUNDS]", file=sys.stderr)
+        return 2
+    old_root, rounds = pathlib.Path(argv[0]).resolve(), int(argv[1]) if len(argv) > 1 else 8
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from tod_tpu_torch.core.config import (GeometryConfig, ModelConfig, PipelineConfig,
+                                           PlannerConfig)
+    from tod_tpu_torch.core.weights import load_pinned
+    from tod_tpu_torch.kernels import connections, mask_assembly
+    from tod_tpu_torch.models import yolact
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.planner import relax
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.server import PathStore
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    old_k1, old_k2 = old_wrappers(torch, build_old(old_root))
+    new_k1, new_k2 = mask_assembly.assemble_crop_masks, connections.connection_planes
+    arms = {"old": (old_k1, old_k2), "new": (new_k1, new_k2)}
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    args = chip_smoke.k1_inputs(torch, np, rng, dev, 1, 64, 80, 32, 32)
+    got, want = old_k1(*args), new_k1(*args)
+    hm = rng.uniform(0, 300, (480, 640)).astype(np.float32)
+    hm[rng.random(hm.shape) < 0.01] = np.nan
+    height = torch.from_numpy(hm).to(dev)
+    a, b = old_k2(height), new_k2(height)
+    k1_err = (got - want).abs().max().item()
+    k2_same = bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    print(f"old against new: K1 max_abs_err {k1_err:.3e} (tol 2e-6), crop identical "
+          f"{torch.equal(got == 0, want == 0)}; K2 planes bitwise equal {k2_same}", flush=True)
+    if not (k1_err <= 2e-6 and torch.equal(got == 0, want == 0) and k2_same):
+        raise AssertionError("the old kernels disagree with the new ones")
+
+    def bind(arm):
+        yolact.assemble_crop_masks, relax.connection_planes = arms[arm]
+
+    state = load_pinned()
+    serve_cfg = PipelineConfig()
+    stream_cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640)),
+                                geometry=GeometryConfig(pallas_bump=True))
+    host_cfg = PipelineConfig(planner=PlannerConfig(backend="native"))
+    serve = Engine(serve_cfg, state, device="cuda")
+    stream = Engine(stream_cfg, state, device="cuda")
+    host = Engine(host_cfg, state, device="cuda")
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(serve_cfg.camera, seed=0,
+                                       n_frames=chip_smoke.N_FRAMES).frames()]
+    for arm in arms:  # cuDNN plans, kernel loads, both arms' first launches
+        bind(arm)
+        serve.serve_step_plan(frames[0]).cpu()
+        stream.warmup()
+        host.warmup()
+
+    def supervised(eng, cfg, n, plan_every):
+        return eng.run_supervised(lambda: SyntheticSource(cfg.camera, n_frames=n), n_frames=n,
+                                  path_store=PathStore(), max_restarts=0, stall_timeout_s=10.0,
+                                  plan_every=plan_every, max_inflight=2, warmup=False)
+
+    def run(arm):
+        bind(arm)
+        k1, k2 = arms[arm]
+        other = arms["new" if arm == "old" else "old"]
+        before = (k1.launches, k2.launches, other[0].launches, other[1].launches)
+        per_frame = []
+        for packed in frames:
+            t = time.perf_counter()
+            serve.serve_step_plan(packed).cpu()
+            per_frame.append(1e3 * (time.perf_counter() - t))
+        s = supervised(stream, stream_cfg, chip_smoke.STREAM_FRAMES, 4)
+        h = supervised(host, host_cfg, chip_smoke.N_FRAMES, 1)
+        after = (k1.launches, k2.launches, other[0].launches, other[1].launches)
+        ran = [y - x for x, y in zip(before, after)]
+        if min(ran[:2]) == 0 or max(ran[2:]) != 0:
+            raise AssertionError(f"arm {arm} launched (K1, K2, the other arm's K1, K2) {ran}")
+        p50 = {k: v["p50_ms"] for k, v in s["stages"].items() if v.get("n")}
+        return {"serve_frame_ms": statistics.median(per_frame), "stream_fps": s["fps"],
+                "stream_frame_p50_ms": p50["frame"],
+                "stream_dispatch_plan_p50_ms": p50["dispatch_plan"], "host_fps": h["fps"]}
+
+    readings = {arm: [] for arm in arms}
+    for r in range(rounds):
+        for arm in ("old", "new") if r % 2 == 0 else ("new", "old"):
+            m = run(arm)
+            readings[arm].append(m)
+            print(f"round {r} {arm}: " + ", ".join(f"{k} {v:.3f}" for k, v in m.items()),
+                  flush=True)
+    metrics = list(readings["old"][0])
+    lower_is_better = {"serve_frame_ms", "stream_frame_p50_ms", "stream_dispatch_plan_p50_ms"}
+    for k in metrics:
+        old = [m[k] for m in readings["old"]]
+        new = [m[k] for m in readings["new"]]
+        wins = sum(n < o if k in lower_is_better else n > o for o, n in zip(old, new))
+        print(f"{k}: median old {statistics.median(old):.3f} new {statistics.median(new):.3f}; "
+              f"range old {min(old):.3f}-{max(old):.3f} new {min(new):.3f}-{max(new):.3f}; "
+              f"new better in {wins} of {rounds} rounds", flush=True)
+    print(json.dumps({arm: {k: [m[k] for m in ms] for k in metrics}
+                      for arm, ms in readings.items()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
