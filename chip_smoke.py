@@ -18,18 +18,21 @@ Phases, each printed as it ends:
    configuration; one frame through ``Engine.serve_step_plan`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
    fails the phase), then 8 synthetic frames, with the path's launch counts
-   reset before and read after; then one frame under ``torch.profiler`` for
-   the device time of each ``stage/`` range;
+   reset before and read after (the terrain dilation's kernel once a
+   frame); then one frame under ``torch.profiler`` for the device time of
+   each ``stage/`` range;
 5. a reference check on a small input: each stage on the card against the
    same stage on the CPU, fed the same inputs, and the occupancy map with
-   the terrain kernel (``pallas_bump``) against the CPU's, exactly;
+   and without ``pallas_bump`` (K3's strips, K4's whole map) against the
+   CPU's, exactly, each with its one launch;
 6. the last plan published on the port's ``PathServer`` and read back with a
    raw ``GetPath``;
 7. the streaming loop at the app's configuration (640x480 camera, model at
    480x640, bf16) with ``pallas_bump``: ``Engine.run_supervised`` over 16
    frames, a plan every 4th, 2 in flight, with its own launch counts; the
-   fusion stage of one profiled frame with K3 and with the ring loop; then
-   K4 as a library call on the terrain peaks of 4 of those frames;
+   fusion stage of one profiled frame with K3's strips and with K4's whole
+   map, each beside its kernel's device time; then K4 as a library call on
+   the terrain peaks of 4 of those frames against the plain ring loop;
 8. ``python3 -m tod_tpu_torch.app`` as a subprocess over 16 frames, with
    one ``GetStat`` while it runs;
 9. weight-only PTQ: the pinned tree quantized with K5 (stochastic, seed 0),
@@ -63,6 +66,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (an FMA counts two)
 # one add, compare or select per lane per clock: 132 SMs x 128 lanes x 1.98 GHz
 ALU_OPS = 33.5e12
+# K5's device work a call: the memset of its column maxima and its two kernels
+K5_PARTS = ("Memset", "quantize")
 N_FRAMES = 8
 STREAM_FRAMES = 16
 
@@ -106,8 +111,8 @@ def time_ms(fn, torch, n: int = 50, warmup: int = 5) -> tuple[float, float]:
 def own_ms(torch, calls, n: int = 50) -> tuple[float | None, list[float | None]]:
     """Own device times from ``torch.profiler`` (CUPTI): (an empty kernel's,
     and for each ``(call, kernel name)`` the median over ``n`` calls of the
-    summed duration of the kernels one call launches whose name holds the
-    kernel name).  One profiler session for all, since a session can miss
+    summed duration of the device activities one call makes whose name holds
+    the kernel name, or one of them where it is a tuple).  One profiler session for all, since a session can miss
     launches near its start: each call is made once before any is counted,
     then each in turn ``n`` times behind an empty kernel (``spin_kernel``,
     which no call launches), and the device's activities are split at the
@@ -143,7 +148,8 @@ def own_ms(torch, calls, n: int = 50) -> tuple[float | None, list[float | None]]
         return floor, [None] * len(calls)
     result = []
     for (_, kernel), run in zip(calls, runs[1:]):
-        spans = [d for d, name in run if kernel in name]
+        parts = (kernel,) if isinstance(kernel, str) else kernel
+        spans = [d for d, name in run if any(part in name for part in parts)]
         per = len(spans) // n
         result.append(statistics.median(sum(spans[i * per : (i + 1) * per]) for i in range(n))
                       / 1e3 if spans and len(spans) % n == 0 else None)
@@ -442,55 +448,100 @@ def terrain_peaks(torch, np, depth, cls, cam, geom):
     return _scatter_peaks(bird_y, cls == 0, rows, geom.terrain_norm_const)
 
 
-def positive_ring_evaluations(torch, peaks_ext, bump_size, out_shape) -> int:
-    """The (pixel, ring) pairs whose ring maximum is positive: where the
-    dilation evaluates its bump (the work this input needs)."""
-    from tod_tpu_torch.kernels.bump import ring_table
+def needed_ring_work(torch, peaks_ext, bump_size, bump_err, out_shape) -> tuple[int, int]:
+    """The work the dilation needs on this input: (maxima, bump
+    evaluations), by a per-pixel exact stop.  A pixel takes the NaN-ignoring
+    maximum W of its window (separably: 2 x 2L maxima), then its rings in
+    ascending r^2 until no ring still to come can raise its accumulator.
+    Since g(m, r) <= m, and on the rings whose exponent is >= 0 g(m, r) <=
+    m / 2 where m >= 2 err (c1 >= 1), it stops once its accumulator reaches
+    floor(W), or on those rings floor(max(min(W, 2 err), W / 2 where W >= 2
+    err)).  Each ring it takes costs one maximum a displacement, and one
+    evaluation of g where the ring's maximum is positive.  (The bounds are
+    in exact arithmetic: this counts work and decides no value.)"""
+    from tod_tpu_torch.kernels.bump import _bump_value, ring_table
 
     h, w = out_shape
+    L = bump_size
     pad = (peaks_ext.shape[0] - h) // 2
-    total = 0
-    for _, disps, _ in ring_table(bump_size):
-        gmax = torch.stack([peaks_ext[pad - dy : pad - dy + h, pad - dx : pad - dx + w]
-                            for dy, dx in disps]).amax(dim=0)
-        total += int((gmax > 0).sum())
-    return total
+    src = torch.nan_to_num(peaks_ext[pad - L + 1 : pad + L + h, pad - L + 1 : pad + L + w],
+                           nan=0.0, posinf=float("inf"))
+    window = torch.nn.functional.max_pool2d(src[None, None], 2 * L, stride=1)[0, 0].clamp_min(0)
+    near_stop = torch.floor(window)
+    two_err = 2.0 * float(bump_err)
+    far_stop = torch.floor(torch.clamp_max(window, two_err))
+    far_stop = torch.where(window >= two_err, torch.fmax(far_stop, torch.floor(window / 2)),
+                           far_stop)
+    acc = torch.zeros((h, w), dtype=torch.float32, device=peaks_ext.device)
+    n_maxima, n_evals = 2 * (2 * L) * h * w, 0
+    for _, disps, exponent in ring_table(L):
+        m = torch.stack([peaks_ext[pad - dy : pad - dy + h, pad - dx : pad - dx + w]
+                         for dy, dx in disps]).amax(dim=0)
+        live = acc < (far_stop if exponent >= 0 else near_stop)
+        n_maxima += len(disps) * int(live.sum())
+        n_evals += int((live & (m > 0)).sum())
+        contrib = torch.floor(_bump_value(m, exponent, bump_err))
+        acc = torch.maximum(acc, torch.where(m > 0, contrib, 0.0))
+    return n_maxima, n_evals
 
 
 def check_bump(torch, np, rng, device):
-    """K3 and K4 against the plain ring loop, bitwise, at VGA, QVGA and a
-    ragged shape with the app's radius L = 10 (and QVGA at L = 4, whose
-    exponents take torch's sqrt and rsqrt cases), then the strip check."""
+    """K3 and K4 against the plain ring loop, bitwise (NaN where it has NaN),
+    at VGA, QVGA and a ragged shape with the app's radius L = 10, QVGA at
+    L = 4 (whose exponents take torch's sqrt and rsqrt cases), VGA with +inf
+    and NaN peaks, the largest radius (a tile above 48 KB of shared memory)
+    and a map whose tiles ``bump_tiling`` shrinks to one row; then the
+    strip check."""
     from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
-    from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips, plain_dilate_peaks
+    from tod_tpu_torch.core.device import sm_count
+    from tod_tpu_torch.kernels.bump import (bump_tiling, dilate_peaks, dilate_peaks_strips,
+                                            plain_dilate_peaks)
     from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
 
-    def random_peaks(h, w, L, integral):
+    def random_peaks(h, w, L, integral, gen=rng):
         ext = np.zeros((h + 2 * L, w + 2 * L), np.float32)
-        m = rng.random(ext.shape) < 0.03
-        ext[m] = rng.integers(1, h, m.sum()) if integral else rng.uniform(1, 60, m.sum())
-        return torch.from_numpy(ext).to(device)
+        m = gen.random(ext.shape) < 0.03
+        ext[m] = gen.integers(1, h, m.sum()) if integral else gen.uniform(1, 60, m.sum())
+        return ext
+
+    def special_peaks(h, w, L, gen):
+        ext = random_peaks(h, w, L, True, gen)
+        ext[gen.random(ext.shape) < 0.002] = np.inf
+        ext[gen.random(ext.shape) < 0.002] = np.nan
+        return ext
 
     geom = GeometryConfig()
     f = synth_frame_numpy(0, 0, 480, 640)
     scene = terrain_peaks(torch, np, torch.from_numpy(f.depth.astype(np.int32)).to(device),
                           torch.from_numpy(color_class_map(np, f.rgb)).to(device),
                           CameraConfig(), geom)
-    cases = [("VGA terrain", scene, (480, 640), 10),
-             ("VGA", random_peaks(480, 640, 10, True), (480, 640), 10),
-             ("VGA float", random_peaks(480, 640, 10, False), (480, 640), 10),
-             ("QVGA", random_peaks(240, 320, 10, True), (240, 320), 10),
-             ("ragged", random_peaks(37, 53, 10, True), (37, 53), 10),
-             ("QVGA L=4", random_peaks(240, 320, 4, True), (240, 320), 4)]
+    extra = np.random.default_rng(5)  # the added cases: the later checks' inputs stay
+    cases = [("VGA terrain", scene, (480, 640), 10)] + [
+        (name, torch.from_numpy(ext).to(device), shape, L) for name, ext, shape, L in (
+            ("VGA", random_peaks(480, 640, 10, True), (480, 640), 10),
+            ("VGA float", random_peaks(480, 640, 10, False), (480, 640), 10),
+            ("QVGA", random_peaks(240, 320, 10, True), (240, 320), 10),
+            ("ragged", random_peaks(37, 53, 10, True), (37, 53), 10),
+            ("QVGA L=4", random_peaks(240, 320, 4, True), (240, 320), 4),
+            ("VGA +inf and NaN", special_peaks(480, 640, 10, extra), (480, 640), 10),
+            ("L=47", random_peaks(480, 100, 47, True, extra), (480, 100), 47),
+            ("one-row tiles", random_peaks(61, 45, 10, False, extra), (61, 45), 10))]
+    sms = sm_count(device)
     for name, ext, shape, L in cases:
         want = plain_dilate_peaks(ext, L, geom.bump_err, shape)
-        got4 = dilate_peaks(ext, L, geom.bump_err, shape)
-        diff = int((got4 != want).sum())
+
+        def differing(got):
+            return int(((got != want) & ~(torch.isnan(got) & torch.isnan(want))).sum())
+
+        diff = differing(dilate_peaks(ext, L, geom.bump_err, shape))
         if shape[0] % 16 == 0:
-            diff += int((dilate_peaks_strips(ext, L, geom.bump_err, shape) != want).sum())
+            diff += differing(dilate_peaks_strips(ext, L, geom.bump_err, shape))
         torch.cuda.synchronize()
+        t = bump_tiling(*shape, L, sms)
         log(f"  K3/K4 bump {name} {tuple(ext.shape)}->{shape} L={L}: differing values={diff} "
-            f"(tol exact), positive outputs={int((want > 0).sum())}")
+            f"(tol exact, NaN where the plain version has NaN), positive outputs="
+            f"{int((want > 0).sum())}, NaN outputs={int(torch.isnan(want).sum())}; {t.blocks} "
+            f"blocks of {t.pixels} pixels x {t.rows} rows, {t.smem_bytes} bytes of shared memory")
         if diff:
             raise AssertionError(f"K3/K4 disagree with the plain ring loop at {name}")
     try:
@@ -503,15 +554,20 @@ def check_bump(torch, np, rng, device):
     ms, wall = time_ms(lambda: dilate_peaks_strips(ext, L, geom.bump_err, shape), torch)
     k4_ms, _ = time_ms(lambda: dilate_peaks(ext, L, geom.bump_err, shape), torch)
     plain_ms, plain_wall = time_ms(lambda: plain_dilate_peaks(ext, L, geom.bump_err, shape), torch)
-    evals = positive_ring_evaluations(torch, ext, L, shape)
-    # each input read once, the output written once; per pixel (2L)^2 maxima,
-    # per positive ring a bump: 2 divisions, a subtraction, a max, a pow, an
-    # addition, a floor and a max
-    n_ops = shape[0] * shape[1] * (2 * L) ** 2 + 8.0 * evals
-    bms, by = bound_ms(4 * (ext.numel() + shape[0] * shape[1]), n_ops)
+    n_maxima, evals = needed_ring_work(torch, ext, L, geom.bump_err, shape)
+    # each input read once, the output written once; the work this input
+    # needs (needed_ring_work, a per-pixel exact stop, which the kernel
+    # does not take): its maxima, and its bump evaluations, each counted as
+    # one operation (on these integral peaks a table lookup and a max: the
+    # kernel's memo).  None is an FMA: one a lane a clock (ALU_OPS), as for
+    # the relaxation.
+    bms, by = bound_ms(4 * (ext.numel() + shape[0] * shape[1]), n_maxima + evals, ALU_OPS)
     log(f"  K3 times at the VGA terrain peaks {tuple(ext.shape)}: kernel_ms={ms:.5f} "
-        f"(K4 {k4_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bms:.6f} ({by}; {evals} bump "
-        f"evaluations); wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+        f"(K4 {k4_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bms:.6f} ({by}; the input needs "
+        f"{n_maxima} maxima, {n_maxima / (shape[0] * shape[1]):.1f} a pixel where the kernel "
+        f"takes {(2 * L) ** 2}, and {evals} bump evaluations: "
+        f"{(n_maxima + evals) / ALU_OPS * 1e3:.6f} ms at ALU_OPS); wall per call: kernel "
+        f"{wall:.4f} ms, plain {plain_wall:.4f} ms")
     common = {"route": "cuda", "source": "tod_tpu_torch/csrc/bump.cu", "max_abs_err": 0.0,
               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
     return [
@@ -525,8 +581,9 @@ def check_bump(torch, np, rng, device):
 def check_k5(torch, np, rng, device):
     """K5: the deterministic path exactly (card against CPU); the stochastic
     kernel bitwise against its plain version (on the card and on the CPU) on
-    the pinned tree's largest kernel and a ragged matrix; and the properties
-    of stochastic rounding."""
+    the pinned tree's largest kernel, a ragged matrix, matrices whose size is
+    not a multiple of 4 and a contiguous view whose base is not 16-byte
+    aligned; and the properties of stochastic rounding."""
     from tod_tpu_torch.core.weights import read_tree
     from tod_tpu_torch.ops.quantize import (
         plain_quantize_tensor_stochastic,
@@ -539,8 +596,18 @@ def check_k5(torch, np, rng, device):
     big = tree[key].reshape(-1, tree[key].shape[-1]).astype(np.float32)
     ragged = rng.normal(0, 0.1, (37, 53)).astype(np.float32)
     ragged[:, 3] = 0.0
-    for name, x in ((f"{key} {big.shape}", big), (f"ragged {ragged.shape}", ragged)):
-        xc, xd = torch.from_numpy(x), torch.from_numpy(x).to(device)
+    extra = np.random.default_rng(6)  # the added cases: the later checks' inputs stay
+    cases = [(f"{key} {big.shape}", big, 0), (f"ragged {ragged.shape}", ragged, 0),
+             ("(7, 5)", extra.normal(0, 0.1, (7, 5)).astype(np.float32), 0),
+             ("(3, 6)", extra.normal(0, 0.1, (3, 6)).astype(np.float32), 0),
+             (f"{key} {big.shape}, a view 4 bytes past 16-byte alignment", big, 1)]
+    for name, x, offset in cases:
+        xc = torch.from_numpy(x)
+        buf = torch.empty(x.size + offset, dtype=torch.float32, device=device)
+        xd = buf[offset:].view(x.shape)
+        xd.copy_(xc)
+        if xd.data_ptr() % 16 != 4 * offset or not xd.is_contiguous():
+            raise AssertionError(f"K5 case {name}: base {xd.data_ptr() % 16} bytes past alignment")
         qd, sd = quantize_tensor(xd)
         qc, sc = quantize_tensor(xc)
         det = torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
@@ -563,9 +630,9 @@ def check_k5(torch, np, rng, device):
         errs = errs[:, :, sd[0] > 1e-12]
         mean, sem = errs.mean().item(), (errs.std() / errs.numel() ** 0.5).item()
         props["mean error within 3 SE of 0"] = abs(mean) < 3 * sem
-        log(f"  K5 quantize {name}: deterministic card == CPU {det}; stochastic kernel == plain "
-            f"{stoch} (on the CPU too: {host}); {props}; mean error over 64 seeds "
-            f"{mean:.3e} (SE {sem:.3e})")
+        log(f"  K5 quantize {name} (numel % 4 = {x.size % 4}): deterministic card == CPU {det}; "
+            f"stochastic kernel == plain {stoch} (on the CPU too: {host}); {props}; mean error "
+            f"over 64 seeds {mean:.3e} (SE {sem:.3e})")
         if not (det and stoch and host and all(props.values())):
             raise AssertionError(f"K5 fails at {name}")
     xd = torch.from_numpy(big).to(device)
@@ -583,7 +650,8 @@ def check_k5(torch, np, rng, device):
         "name": "quantize", "route": "cuda", "source": "tod_tpu_torch/csrc/quantize.cu",
         "replaces": "tod_tpu/ops/quantize.py:43", "max_abs_err": 0.0, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "own": (lambda: quantize_tensor_pallas(xd, seed=7), "quantize_kernel"),
+        # its memset and its two kernels, the column maxima and the quantize pass
+        "own": (lambda: quantize_tensor_pallas(xd, seed=7), K5_PARTS),
     }
 
 
@@ -661,6 +729,9 @@ def main_path(torch, np, counters):
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if launches["bump"] != N_FRAMES:
+        raise AssertionError(f"the terrain dilation kernel ran {launches['bump']} times in "
+                             f"{N_FRAMES} frames, not once a frame")
     if max(n_valid) == 0:
         raise AssertionError("no frame produced a path to a ball")
     return Path.from_plan(plan), launches, statistics.median(per_frame), eng, frames
@@ -777,54 +848,62 @@ def reference_check(torch, np):
 
 
 def bump_reference_check(torch, np):
-    """The occupancy map with the terrain kernel (``pallas_bump``, 128 rows)
-    on the card against the CPU's, exactly, and against the card's own ring
-    loop; class maps by colour on the synthetic frames."""
+    """The occupancy map on the card against the CPU's, exactly, with
+    ``pallas_bump`` (K3's strips, 128 rows) and without (K4's whole map),
+    each with its one launch of the terrain kernel; class maps by colour on
+    the synthetic frames."""
     from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
     from tod_tpu_torch.geometry.fusion import occupancy_map
-    from tod_tpu_torch.kernels.bump import dilate_peaks_strips
+    from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips
     from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
 
     cam = CameraConfig(width=160, height=128)
-    k3, ring = GeometryConfig(pallas_bump=True), GeometryConfig()
-    for t in (0, 7):
-        f = synth_frame_numpy(0, t, cam.height, cam.width)
-        depth = torch.from_numpy(f.depth.astype(np.int32))
-        cls = torch.from_numpy(color_class_map(np, f.rgb))
-        before = dilate_peaks_strips.launches
-        card = occupancy_map(depth.cuda(), cls.cuda(), cam, k3)
-        launched = dilate_peaks_strips.launches - before
-        card_ring = occupancy_map(depth.cuda(), cls.cuda(), cam, ring).cpu()
-        host = occupancy_map(depth, cls, cam, k3)
-        card = card.cpu()
-        vs_cpu, vs_ring = int((card != host).sum()), int((card != card_ring).sum())
-        log(f"  pallas_bump occupancy t={t} {tuple(card.shape)}: K3 launches={launched}, "
-            f"heights differing card vs CPU={vs_cpu}, K3 vs the card's ring loop={vs_ring} "
-            f"(tol exact), positive heights={int((host > 0).sum())}")
-        if launched != 1 or vs_cpu or vs_ring:
-            raise AssertionError(f"the pallas_bump occupancy map disagrees on frame t={t}")
+    for pallas_bump, entry in ((True, dilate_peaks_strips), (False, dilate_peaks)):
+        geom = GeometryConfig(pallas_bump=pallas_bump)
+        for t in (0, 7):
+            f = synth_frame_numpy(0, t, cam.height, cam.width)
+            depth = torch.from_numpy(f.depth.astype(np.int32))
+            cls = torch.from_numpy(color_class_map(np, f.rgb))
+            counts = dilate_peaks_strips.launches, dilate_peaks.launches
+            card = occupancy_map(depth.cuda(), cls.cuda(), cam, geom).cpu()
+            launched = (dilate_peaks_strips.launches - counts[0], dilate_peaks.launches - counts[1])
+            host = occupancy_map(depth, cls, cam, geom)
+            vs_cpu = int((card != host).sum())
+            log(f"  occupancy pallas_bump={pallas_bump} t={t} {tuple(card.shape)}: launches "
+                f"(strips, whole map)={launched}, heights differing card vs CPU={vs_cpu} (tol "
+                f"exact), positive heights={int((host > 0).sum())}")
+            want = (1, 0) if entry is dilate_peaks_strips else (0, 1)
+            if launched != want or vs_cpu:
+                raise AssertionError(f"the occupancy map with pallas_bump={pallas_bump} "
+                                     f"disagrees on frame t={t}")
 
 
-def fusion_profile(torch, eng, packed) -> tuple[float, float]:
+def fusion_profile(torch, eng, packed) -> tuple[float, float, float]:
     """(device ms, host ms) of the ``stage/fusion`` range of one profiled
-    ``serve_step_scene`` call."""
+    ``serve_step_scene`` call, and the device ms of the terrain kernel, which
+    is launched through ctypes and lands under no range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.serve_step_scene(packed)
         torch.cuda.synchronize()
-    for e in prof.events():
+    events = prof.events()
+    kernel = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == DeviceType.CUDA and "bump_kernel" in e.name) / 1e3
+    for e in events:
         if e.name == "stage/fusion" and e.device_type == DeviceType.CPU:
-            return round(e.device_time_total / 1e3, 4), round(e.cpu_time_total / 1e3, 3)
+            return (round(e.device_time_total / 1e3, 4), round(e.cpu_time_total / 1e3, 3),
+                    round(kernel, 4))
     raise AssertionError("the profiler recorded no stage/fusion range")
 
 
 def streaming(torch, np, state, counters, k4):
     """The app's configuration with ``pallas_bump``: ``run_supervised`` over
     16 synthetic frames, a plan every 4th, 2 in flight; then the fusion stage
-    of one frame with K3 and with the ring loop; then K4 as a library call on
-    the terrain peaks of 4 frames, against K3 on the same peaks."""
+    of one frame with K3's strips and with K4's whole map; then K4 as a
+    library call on the terrain peaks of 4 frames, against the plain ring
+    loop on the same peaks."""
     from tod_tpu_torch.core.config import GeometryConfig, ModelConfig, PipelineConfig
     from tod_tpu_torch.kernels.bump import plain_dilate_peaks
     from tod_tpu_torch.models.yolact import detect
@@ -865,13 +944,14 @@ def streaming(torch, np, state, counters, k4):
 
     frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
               for f in SyntheticSource(cfg.camera, seed=0, n_frames=4).frames()]
-    ring_eng = Engine(cfg.replace(geometry=GeometryConfig()), state, device="cuda")
-    ring_eng.serve_step_scene(frames[0])
+    whole_eng = Engine(cfg.replace(geometry=GeometryConfig()), state, device="cuda")
+    whole_eng.serve_step_scene(frames[0])
     rows = {}
-    for name, e in (("K3", eng), ("ring loop", ring_eng), ("K3 again", eng),
-                    ("ring loop again", ring_eng)):
+    for name, e in (("K3 strips", eng), ("K4 whole map", whole_eng), ("K3 strips again", eng),
+                    ("K4 whole map again", whole_eng)):
         rows[name] = fusion_profile(torch, e, frames[1])
-    log(f"  stage/fusion of one frame, (device ms, host ms): {rows}")
+    log(f"  stage/fusion of one frame, (range device ms, range host ms, terrain kernel device "
+        f"ms): {rows}")
 
     cam, geom = cfg.camera, cfg.geometry
     reset(k4)
@@ -891,7 +971,7 @@ def streaming(torch, np, state, counters, k4):
         f"values differing from the plain ring loop {diffs} (tol exact)")
     if any(diffs) or k4_launches["bump"] != len(frames):
         raise AssertionError("K4 disagrees with the ring loop on the streamed frames")
-    return {**launches, **k4_launches}, m
+    return launches, m
 
 
 def app_subprocess(root) -> None:
@@ -1005,7 +1085,8 @@ def host_planner(torch, np, state, counters):
     if m["n_frames"] != N_FRAMES or m["plans_done"] < 1 or not well_formed:
         raise AssertionError(f"host-planner run fell short: {m['n_frames']} frames, "
                              f"{m['plans_done']} plans, {len(dirs)} directions")
-    if launches["mask_assembly"] != N_FRAMES or launches["relax"] or launches["path_walk"]:
+    if (launches["mask_assembly"] != N_FRAMES or launches["bump"] != N_FRAMES
+            or launches["relax"] or launches["path_walk"]):
         raise AssertionError(
             f"kernels not launched as expected on the host-planner path: {launches}")
     return launches
@@ -1069,10 +1150,12 @@ def main() -> int:
     from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
     # each path's kernels, with their launch counters
-    serving = {"mask_assembly": assemble_crop_masks, "connections": connection_planes,
-               "relax": bellman_ford_grid, "path_walk": walk_path}
-    stream_path = {**serving, "bump_strips": dilate_peaks_strips}
-    k4_path = {"bump": dilate_peaks}
+    planner = {"connections": connection_planes, "relax": bellman_ford_grid,
+               "path_walk": walk_path}
+    serving = {"mask_assembly": assemble_crop_masks, "bump": dilate_peaks, **planner}
+    stream_path = {"mask_assembly": assemble_crop_masks, "bump_strips": dilate_peaks_strips,
+                   **planner}
+    k4_call = {"bump": dilate_peaks}
     ptq_path = {**serving, "quantize": quantize_tensor_pallas}
 
     log("== 1. device")
@@ -1116,7 +1199,7 @@ def main() -> int:
 
     log("== 7. streaming loop, app configuration, pallas_bump")
     state = load_pinned()
-    stream_launches, _ = streaming(torch, np, state, stream_path, k4_path)
+    stream_launches, _ = streaming(torch, np, state, stream_path, k4_call)
 
     log("== 8. the app as a subprocess")
     app_subprocess(root)
@@ -1130,8 +1213,9 @@ def main() -> int:
     log("== 11. each kernel's own device time")
     own_times(torch, kernels, floor_ms)
 
-    # launches: each kernel's count on the path it belongs to
-    launches.update({k: stream_launches[k] for k in ("bump_strips", "bump")})
+    # launches: each kernel's count on the path it belongs to (K4's on the
+    # default serve path, K3's on the stream path with pallas_bump)
+    launches["bump_strips"] = stream_launches["bump_strips"]
     launches["quantize"] = ptq_launches["quantize"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,13 +1,19 @@
 """Kernels K3 and K4 (the terrain bump dilation): the port's wrappers on the
 CPU, which run the plain ring loop, against the JAX package's Pallas kernels
 in interpret mode and its XLA loop, exactly; the ring table both sides read;
-and the ``pallas_bump`` route of the occupancy map.  The CUDA kernel itself
-is held against the plain version on the card (``chip_smoke.py``, and the
-case below that skips without CUDA)."""
+the occupancy map's choice of entry (both run the kernel on the card); that
+no module of the main path calls a plain version; the ring table as the
+kernel reads it; and the kernel's rule (its memo of the bump, each ring's
+value taken one ring late), emulated in NumPy.  The CUDA kernel itself is held
+against the plain version on the card (``chip_smoke.py``, and the case
+below that skips without CUDA)."""
 
 from __future__ import annotations
 
+import ast
 import math
+import pathlib
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +26,9 @@ from tod_tpu.geometry.fusion import _dilate_peaks as jax_ring_loop
 from tod_tpu.geometry.fusion import occupancy_map as jax_occupancy
 from tod_tpu.kernels.bump import dilate_peaks as pallas_dilate
 from tod_tpu.kernels.bump import dilate_peaks_strips as pallas_strips
+import tod_tpu_torch
 from tod_tpu_torch.core import config as tcfg
+from tod_tpu_torch.geometry import fusion
 from tod_tpu_torch.geometry.fusion import occupancy_map
 from tod_tpu_torch.kernels.bump import (
     POW_COPY,
@@ -29,11 +37,15 @@ from tod_tpu_torch.kernels.bump import (
     POW_RECIPROCAL,
     POW_RSQRT,
     POW_SQRT,
+    MEMO_VALUES,
+    TILE_W,
+    _bump_value,
     dilate_peaks,
     dilate_peaks_strips,
     plain_dilate_peaks,
     pow_mode,
     ring_table,
+    table_words,
 )
 
 
@@ -186,3 +198,179 @@ def test_occupancy_with_pallas_bump_matches_jax():
                         tcfg.CameraConfig(width=w, height=h), tcfg.GeometryConfig(pallas_bump=True))
     assert (want > 0).sum() > 1000 and not math.isnan(float(want.sum()))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def scene_maps(seed: int, h: int, w: int):
+    """Depth and class maps with terrain, both robot classes and a ball."""
+    rng = np.random.default_rng(seed)
+    depth = rng.integers(200, 3500, (h, w)).astype(np.uint16)
+    cls = np.zeros((h, w), np.uint8)
+    cls[5:9, 6:10] = 1
+    cls[30:33, 20:30] = 2
+    cls[20:25, 20:24] = 3
+    return depth, cls
+
+
+@pytest.mark.parametrize("pallas_bump,h,entry", [
+    (False, 48, "dilate_peaks"),
+    (True, 48, "dilate_peaks_strips"),
+    (True, 40, "dilate_peaks"),  # not whole 16-row strips
+    (False, 40, "dilate_peaks"),
+])
+def test_occupancy_takes_a_kernel_entry_and_matches_jax(monkeypatch, pallas_bump, h, entry):
+    """``occupancy_map`` calls K3's entry with ``pallas_bump`` on whole
+    16-row strips and K4's otherwise (each launches the kernel on a CUDA
+    tensor), once a frame; the map equals the JAX package's with
+    ``use_pallas`` on and off, exactly."""
+    calls = []
+    for name in ("dilate_peaks", "dilate_peaks_strips"):
+        real = getattr(fusion, name)
+
+        def spy(*args, _name=name, _real=real, **kwargs):
+            calls.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(fusion, name, spy)
+    w = 48
+    depth, cls = scene_maps(7, h, w)
+    got = occupancy_map(torch.from_numpy(depth.astype(np.int32)), torch.from_numpy(cls),
+                        tcfg.CameraConfig(width=w, height=h),
+                        tcfg.GeometryConfig(pallas_bump=pallas_bump)).numpy()
+    assert calls == [entry]
+    assert (got > 0).sum() > 500
+    for use_pallas in (False, True):
+        want = np.asarray(jax_occupancy(
+            jnp.asarray(depth), jnp.asarray(cls), jcfg.CameraConfig(width=w, height=h),
+            jcfg.GeometryConfig(pallas_bump=pallas_bump), use_pallas=use_pallas,
+        ))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_no_plain_version_on_the_main_path():
+    """Only the kernels' modules (``kernels/*.py``) and ``ops/quantize.py``,
+    which hold the plain versions beside their wrappers, name a ``plain_*``
+    function; every other module of the port reaches a kernel's work
+    through its wrapper."""
+    root = pathlib.Path(tod_tpu_torch.__file__).parent
+    allowed = set((root / "kernels").glob("*.py")) | {root / "ops" / "quantize.py"}
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        if path in allowed:
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Name):
+                name = node.id
+            elif isinstance(node, ast.Attribute):
+                name = node.attr
+            elif isinstance(node, ast.alias):
+                name = node.name.rsplit(".", 1)[-1]
+            elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                name = node.name
+            else:
+                continue
+            if name.startswith("plain_"):
+                found.append(f"{path.relative_to(root)}:{node.lineno} {name}")
+    assert len(allowed) > 5 and not found, found
+
+
+def emulate_kernel(ext: np.ndarray, L: int, err: float, out_shape):
+    """csrc/bump.cu's rule in NumPy: rings in ascending r^2, each ring's
+    NaN-propagating maximum; where it is positive, its bump from the memo
+    table (``floor(g(v, r))`` for the integral v below ``MEMO_VALUES``,
+    filled with the plain arithmetic) or computed; each ring's value taken
+    into the accumulator one ring late with a NaN-propagating max.  Returns
+    (the (h, w) map, evaluations read from the memo, evaluations computed)."""
+    h, w = out_shape
+    pad = (ext.shape[0] - h) // 2
+    values = torch.arange(MEMO_VALUES, dtype=torch.float32)
+    acc = np.zeros((h, w), np.float32)
+    pending = np.full((h, w), -np.inf, np.float32)
+    from_memo = computed = 0
+    for _, disps, exponent in ring_table(L):
+        memo = torch.floor(_bump_value(values, exponent, err)).numpy()
+        memo[0] = 0.0
+        m = np.full((h, w), -np.inf, np.float32)
+        for dy, dx in disps:
+            src = ext[pad - dy : pad - dy + h, pad - dx : pad - dx + w]
+            m = np.where(np.isnan(m) | np.isnan(src), np.nan, np.maximum(m, src))
+        with np.errstate(invalid="ignore"):
+            positive = m > 0
+            held = positive & (m < MEMO_VALUES) & (m == np.floor(m))
+        index = np.where(held, m, 0).astype(np.int64)
+        value = torch.floor(_bump_value(torch.from_numpy(np.where(positive, m, 1.0)
+                                                         .astype(np.float32)), exponent,
+                                        err)).numpy()
+        value = np.where(held, memo[index], np.where(positive, value, -np.inf))
+        acc = np.where(np.isnan(acc) | np.isnan(pending), np.nan, np.maximum(acc, pending))
+        pending = value.astype(np.float32)
+        from_memo += int(held.sum())
+        computed += int((positive & ~held).sum())
+    out = np.where(np.isnan(acc) | np.isnan(pending), np.nan, np.maximum(acc, pending))
+    return out.astype(np.float32), from_memo, computed
+
+
+def special_peaks(seed: int, h: int, w: int, L: int, kind: str) -> np.ndarray:
+    """Dense peaks, integral (below and above the memo's range) or float, or
+    integral ones with +inf and NaN among them, on a P = L padded map."""
+    rng = np.random.default_rng(seed)
+    ext = np.zeros((h + 2 * L, w + 2 * L), np.float32)
+    m = rng.random(ext.shape) < 0.4
+    ext[m] = rng.uniform(20, 39, m.sum()) if kind == "float" else rng.integers(20, 1400, m.sum())
+    if kind == "inf and NaN":
+        ext[rng.random(ext.shape) < 0.004] = np.inf
+        ext[rng.random(ext.shape) < 0.004] = np.nan
+    return ext
+
+
+@pytest.mark.parametrize("L", [4, 10])
+@pytest.mark.parametrize("kind", ["integral", "float", "inf and NaN"])
+def test_kernel_emulation_equals_the_plain_ring_loop(L, kind):
+    """The kernel's memo and its one-ring-late accumulation change no value,
+    NaN included: the emulation equals ``plain_dilate_peaks``, with
+    evaluations from the memo on integral peaks and computed on the others."""
+    h, w = 45, 70
+    ext = special_peaks(L, h, w, L, kind)
+    want = plain_dilate_peaks(torch.from_numpy(ext), L, 0.1, (h, w)).numpy()
+    got, from_memo, computed = emulate_kernel(ext, L, 0.1, (h, w))
+    np.testing.assert_array_equal(got, want)
+    assert computed > 0 and (from_memo > 0) == (kind != "float")
+    if kind == "inf and NaN":
+        assert np.isnan(want).any() and (np.isinf(ext).any() and np.isnan(ext).any())
+
+
+def test_kernel_emulation_on_the_terrain():
+    """A synthetic frame's terrain peaks at the app's radius: exact, and
+    every evaluation read from the memo (the peaks are image row indices)."""
+    from chip_smoke import color_class_map, terrain_peaks
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    f = synth_frame_numpy(0, 0, 96, 128)
+    cam, geom = tcfg.CameraConfig(width=128, height=96), tcfg.GeometryConfig()
+    ext = terrain_peaks(torch, np, torch.from_numpy(f.depth.astype(np.int32)),
+                        torch.from_numpy(color_class_map(np, f.rgb)), cam, geom).numpy()
+    L = geom.terrain_norm_const
+    want = plain_dilate_peaks(torch.from_numpy(ext), L, geom.bump_err, (96, 128)).numpy()
+    got, from_memo, computed = emulate_kernel(ext, L, geom.bump_err, (96, 128))
+    np.testing.assert_array_equal(got, want)
+    assert (want > 0).sum() > 1000 and from_memo > 1000 and computed == 0
+
+
+@pytest.mark.parametrize("L", [1, 4, 10])
+def test_table_words_lay_out_the_ring_table(L):
+    """``table_words`` holds the ring table as csrc/bump.cu's ``Table``
+    reads it: each displacement's word offset in a tile of row stride
+    ``32 + 2L - 1``, the ring starts, the pow modes and the float32
+    exponents' bits."""
+    rings = ring_table(L)
+    words = table_words(L)
+    n_disp, n_rings, stride = 4 * L * L, len(rings), TILE_W + 2 * L - 1
+    assert words.dtype == np.int32 and words.size == n_disp + 3 * n_rings + 1
+    off, start = words[:n_disp], words[n_disp : n_disp + n_rings + 1]
+    mode, exp = words[n_disp + n_rings + 1 : n_disp + 2 * n_rings + 1], words[-n_rings:]
+    assert start[0] == 0 and start[-1] == n_disp
+    for r, (r2, disps, e) in enumerate(rings):
+        got = [(int(-o + L * stride + L) // stride - L, int(-o + L * stride + L) % stride - L)
+               for o in off[start[r] : start[r + 1]]]
+        assert got == list(disps) and all(dy * dy + dx * dx == r2 for dy, dx in got)
+        assert mode[r] == pow_mode(e)
+        assert struct.unpack("<f", struct.pack("<i", int(exp[r])))[0] == np.float32(e)

@@ -1,11 +1,13 @@
-"""The work plans of kernels K1 (``csrc/mask_assembly.cu``) and K2
-(``csrc/connections.cu``), rehearsed in plain torch.
+"""The work plans of kernels K1 (``csrc/mask_assembly.cu``), K2
+(``csrc/connections.cu``) and K3/K4 (``csrc/bump.cu``), rehearsed in plain
+torch.
 
 Neither CUDA kernel runs here.  What surrounds their arithmetic is
 rehearsed step for step instead: K1's pixel tiles, detection groups,
 zero-padded staging, rotated register loads and per-warp stores; K2's row
 bands staged with a NaN halo at the kernel's column offset and row stride,
-and its float4 stores (N, NE, E, SE and their negations).  Each rehearsal
+and its float4 stores (N, NE, E, SE and their negations); K3/K4's blocks of
+32 columns by ``bump_tiling``'s rows.  Each rehearsal
 writes every output once, which the tests count, and is held against the
 plain torch version and the JAX package's Pallas kernel in interpret mode.
 The kernels themselves are held against the plain versions on the card by
@@ -22,6 +24,7 @@ import torch
 
 from tod_tpu.kernels.connections import connection_weights as pallas_connections
 from tod_tpu.kernels.mask_assembly import assemble_crop_masks as pallas_masks
+from tod_tpu_torch.kernels import bump as k3
 from tod_tpu_torch.kernels import connections as k2
 from tod_tpu_torch.kernels import mask_assembly as k1
 from tod_tpu_torch.ops import ieee
@@ -318,3 +321,63 @@ class TestConnectionPlanes:
         monkeypatch.setattr(k2, "positions", lambda *a: calls.append(a))
         plan, _ = relax.plan_on_device(torch.zeros(16, 16), torch.zeros(8, 4), (15, 8))
         assert calls == [] and plan.shape == (1025, 2)
+
+
+def bump_writes(h: int, w: int, t) -> torch.Tensor:
+    """How many times csrc/bump.cu writes each output pixel under tiling t:
+    block (bx, by), thread (tx, ty) writes rows ``by * tile_h + ty * pixels
+    + p`` of column ``bx * 32 + tx`` that lie on the map."""
+    writes = torch.zeros(h, w, dtype=torch.int64)
+    oy = (torch.arange(t.blocks_y)[:, None, None] * t.tile_h
+          + torch.arange(t.rows)[None, :, None] * t.pixels
+          + torch.arange(t.pixels)[None, None, :]).reshape(-1)
+    ox = (torch.arange(t.blocks_x)[:, None] * k3.TILE_W + torch.arange(k3.TILE_W)[None, :]).reshape(-1)
+    oy, ox = oy[oy < h], ox[ox < w]
+    writes.index_put_((oy[:, None].expand(-1, len(ox)), ox[None, :].expand(len(oy), -1)),
+                      torch.ones(len(oy), len(ox), dtype=torch.int64), accumulate=True)
+    return writes
+
+
+class TestBumpTiling:
+    @pytest.mark.parametrize("h,w", [(480, 640), (240, 320), (37, 53), (960, 1280)])
+    @pytest.mark.parametrize("sms", [SMS, 16])
+    def test_covers_every_pixel_once_within_limits(self, h, w, sms):
+        t = k3.bump_tiling(h, w, 10, sms)
+        assert bool((bump_writes(h, w, t) == 1).all())
+        assert t.pixels in k3.PIXELS and t.threads == 32 * t.rows <= 1024
+        assert t.smem_bytes == k3.smem_bytes(t.tile_h, 10) <= k3.SMEM_LIMIT
+        # every SM gets a block, unless the tile is already one row
+        assert t.blocks >= sms or t.tile_h == 1
+
+    def test_main_path_plan(self):
+        t = k3.bump_tiling(480, 640, 10, SMS)
+        assert (t.pixels, t.rows, t.blocks, t.threads) == (2, 4, 1200, 128)
+        assert t.smem_bytes == 4 * (8 + 19) * (32 + 19)
+
+    def test_takes_the_sm_count_into_account(self):
+        """A small map takes smaller tiles on more SMs, the default on few."""
+        few, many = k3.bump_tiling(37, 53, 10, 4), k3.bump_tiling(37, 53, 10, SMS)
+        assert (few.pixels, few.rows) == (k3.DEFAULT_PIXELS, k3.DEFAULT_ROWS)
+        assert many.tile_h < few.tile_h and many.blocks > few.blocks
+        assert k3.bump_tiling(37, 53, 10, 16).tile_h == 4
+
+    def test_given_tilings_and_limits(self):
+        t = k3.bump_tiling(480, 640, 10, SMS, pixels=4, rows=4)
+        assert (t.tile_h, t.blocks) == (16, 20 * 30)
+        assert bool((bump_writes(480, 640, t) == 1).all())
+        assert k3.bump_tiling(480, 100, 47, SMS).smem_bytes > 48 * 1024  # needs the opt-in
+        with pytest.raises(ValueError, match="bump_size 200"):
+            k3.bump_tiling(480, 640, 200, SMS)
+        with pytest.raises(ValueError, match="bump_size"):
+            k3.bump_tiling(480, 640, 0, SMS)
+        with pytest.raises(ValueError, match="no tiling"):
+            k3.bump_tiling(480, 640, 10, SMS, pixels=3, rows=4)
+        with pytest.raises(ValueError, match="no tiling"):
+            k3.bump_tiling(480, 640, 10, SMS, pixels=2, rows=k3.MAX_ROWS + 1)
+        # the largest tile fits shared memory at L = 47; the tile shrinks to
+        # fit it, down to one row at L = 113, the largest radius that fits
+        assert k3.bump_tiling(480, 640, 47, SMS, pixels=4, rows=32).smem_bytes <= k3.SMEM_LIMIT
+        assert k3.bump_tiling(480, 640, 112, SMS).tile_h == 4
+        assert k3.bump_tiling(480, 640, 113, SMS).tile_h == 1
+        with pytest.raises(ValueError, match="bump_size 114"):
+            k3.bump_tiling(480, 640, 114, SMS)

@@ -18,6 +18,7 @@ from tests.test_torch_pipeline import CAM, MODEL, PLANNER, assert_plans_close, f
 from tod_tpu.core import config as jcfg
 from tod_tpu.ops import quantize as jq
 from tod_tpu_torch.core import config as tcfg
+from tod_tpu_torch.ops import ieee
 from tod_tpu_torch.ops import quantize as tq
 
 MASK = 0xFFFFFFFF
@@ -115,6 +116,55 @@ class TestTensor:
         assert tq.quantize_tensor_pallas.launches == before
         with pytest.raises(ValueError):
             tq.quantize_tensor_pallas(x.reshape(-1))
+
+    @pytest.mark.parametrize("n,c", [(8, 6), (3, 7), (3, 6), (7, 5), (1, 5)])
+    def test_flat_by_four_emulation_matches_plain(self, n, c):
+        """csrc/quantize.cu's rule, emulated: column maxima as the int bits
+        of |x| (the atomicMax route), then a thread a Philox counter g for
+        the flat indices 4g .. 4g + 3, word k for index 4g + k, its column
+        (4g + k) % C; numel % 4 is 0, 1, 2, 3 and 1 here."""
+        x = weights(5, n, c)
+        x[0, 0] = -x[0, 0] * 40  # a column whose maximum is a negative value's magnitude
+        numel = n * c
+        bits = np.abs(x).view(np.int32).max(axis=0)  # order as the floats, NaN last
+        scale = ieee.div(torch.from_numpy(bits.view(np.float32)[None]), 127.0).clamp_min(1e-12)
+        flat = torch.from_numpy(x.reshape(-1))
+        q = torch.empty(numel, dtype=torch.int8)
+        for g in range(-(-numel // 4)):
+            words = tq.philox4x32(torch.tensor([g]), 9)[0]
+            for k in range(4):
+                i = 4 * g + k
+                if i < numel:
+                    u = (words[k] >> 8).to(torch.float32) * 2.0**-24
+                    v = torch.floor(flat[i] / scale[0, i % c] + u)
+                    q[i] = torch.clamp(v, -127, 127).to(torch.int8)
+        pq, pscale = tq.plain_quantize_tensor_stochastic(torch.from_numpy(x), seed=9)
+        assert torch.equal(scale, pscale)
+        assert torch.equal(q.reshape(n, c), pq)
+
+    def test_magnitude_bits_order_as_the_floats(self):
+        """The atomicMax route's premise: for |x|, the int32 bits order as
+        the float values do, through 0, subnormals, normals and +inf, and a
+        NaN (sign cleared) orders above +inf, so a column's NaN wins as in
+        torch.amax."""
+        f32 = np.float32
+        tiny = np.finfo(np.float32).smallest_subnormal
+        vals = np.array([0.0, -0.0, tiny, -3 * tiny, f32(1e-39), np.finfo(np.float32).tiny,
+                         f32(1e-12), -0.5, 1.0, f32(126.99), -3.4e38, np.inf, -np.inf],
+                        np.float32)
+        mag = np.abs(vals)
+        bits = mag.view(np.int32)
+        assert (bits >= 0).all()
+        order = np.argsort(bits, kind="stable")
+        assert (mag[order][1:] >= mag[order][:-1]).all()
+        for a in mag:
+            for b in mag:
+                assert (a.view(np.int32) > b.view(np.int32)) == (a > b)
+        nan_bits = np.abs(np.array([np.nan, -np.nan], np.float32)).view(np.int32)
+        assert (nan_bits > np.float32(np.inf).view(np.int32)).all()
+        col = np.array([1.0, np.nan, 5.0], np.float32)
+        assert np.isnan(np.abs(col).view(np.int32).max().view(np.float32))
+        assert np.isnan(torch.from_numpy(col).abs().amax().item())
 
     @pytest.mark.parametrize("n,c", [(1152, 288), (37, 53)])
     def test_kernel_matches_plain_on_cuda(self, n, c):

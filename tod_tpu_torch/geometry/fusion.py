@@ -2,10 +2,11 @@
 the JAX package's ``geometry/fusion.py``).
 
 Per frame: perspective depth correction and birdseye projection, peak
-scatter-max per birdseye cell, the terrain bump dilation (the ring loop, or
-kernel K3 with ``GeometryConfig.pallas_bump``) and the robot bump dilation,
-ball centroids by instance id, and the 8-neighbour connection weights
-(kernel K2).
+scatter-max per birdseye cell, the terrain bump dilation (kernel K3 in
+16-row strips with ``GeometryConfig.pallas_bump``, kernel K4 over the whole
+map otherwise: on the card both launch the one kernel of ``csrc/bump.cu``)
+and the robot bump dilation, ball centroids by instance id, and the
+8-neighbour connection weights (kernel K2).
 Every step mirrors the float32 operations of the JAX reference in the same
 order; the transcendental functions (tan, atan, cos, pow) come from torch's
 libraries and may differ from XLA's by an ulp.
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
 from tod_tpu_torch.core.types import Scene
-from tod_tpu_torch.kernels.bump import dilate_peaks_strips, plain_dilate_peaks
+from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips
 from tod_tpu_torch.kernels.connections import connection_weights
 from tod_tpu_torch.ops.ieee import div, rdiv, sqrt
 
@@ -136,12 +137,14 @@ def occupancy_map(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
     pad_t = geom.terrain_norm_const
     terrain_peaks = _scatter_peaks(bird_y, cls_map == 0, rows, pad_t)
     # the JAX package's selection rule: the strip kernel (K3) with
-    # ``pallas_bump`` on whole 16-row strips, the ring loop otherwise; on a
-    # CPU tensor the wrapper runs that same ring loop
+    # ``pallas_bump`` on whole 16-row strips, the whole-map entry (K4, where
+    # the JAX package runs its fused loop) otherwise.  Both are exact: on the
+    # card both launch the same kernel, on a CPU tensor both run the plain
+    # ring loop.
     if geom.pallas_bump and h % 16 == 0:
         terrain = dilate_peaks_strips(terrain_peaks, pad_t, geom.bump_err, (h, w), strip_h=16)
     else:
-        terrain = plain_dilate_peaks(terrain_peaks, pad_t, geom.bump_err, (h, w))
+        terrain = dilate_peaks(terrain_peaks, pad_t, geom.bump_err, (h, w))
     robots = _dilate_const_separable(
         _robot_peaks(bird_y, cls_map, geom), geom.bot_norm_const,
         geom.bot_avoidance_const, geom.bump_err, (h, w),

@@ -22,15 +22,15 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from tod_tpu_torch.core.device import resolve_device
+from tod_tpu_torch.core.device import resolve_device, sm_count
 from tod_tpu_torch.kernels import _build
 from tod_tpu_torch.ops.ieee import div
 
 SOURCE = "quantize"
 SIGNATURES = {
     "tod_quantize": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -101,9 +101,11 @@ def quantize_tensor_pallas(x2d: torch.Tensor, seed: int = 0):
     if n * c == 0:
         return q, scale
     lib = _build.load(SOURCE, SIGNATURES)
+    amax_bits = torch.empty(c, dtype=torch.int32, device=x2d.device)
     with torch.cuda.device(x2d.device):
         err = lib.tod_quantize(x2d.data_ptr(), n, c, seed & _MASK, q.data_ptr(),
-                               scale.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                               scale.data_ptr(), amax_bits.data_ptr(), sm_count(x2d.device),
+                               torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "quantize launch")
     quantize_tensor_pallas.launches += 1
     return q, scale

@@ -7,7 +7,8 @@ streaming loop around it (counterpart of the JAX package's
 the depth as little-endian u16) in, one ``(max_path_steps + 1, 2)`` f32 plan
 buffer out.  It runs eagerly on the engine's device: preprocess, the YOLACT
 forward in ``ModelConfig.dtype``, detection cleanup (kernel K1), the
-occupancy map (kernel K3 with ``GeometryConfig.pallas_bump``) and ball
+occupancy map (the terrain dilation kernel: K3's strips with
+``GeometryConfig.pallas_bump``, K4's whole map otherwise) and ball
 centroids, then the planner (kernel K2 for its edges, the relaxation
 kernel, the path walk kernel).
 The JAX graph dead-codes the scene's connection/pos maps that nothing reads;

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the relaxation, path-walk, mask-assembly (K1) and connection (K2)
-kernels at several shapes.
+"""Time the relaxation, path-walk, mask-assembly (K1), connection (K2),
+terrain dilation (K3/K4) and stochastic quantizer (K5) kernels at several
+shapes and build options.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``python3 tools/block_sweep.py [relax] [walk] [k1] [k2]`` (all four when
-none is named).
+``python3 tools/block_sweep.py [relax] [walk] [k1] [k2] [k3] [k5]`` (all
+six when none is named).
 
 - The relaxation is compiled once per block size (``-DTOD_THREADS``) and run
   at several tilings: the batch depth k (sweeps per grid barrier) with the
@@ -20,6 +21,15 @@ none is named).
   same source built with ``-DTOD_K2_BULK=0`` (coalesced loads only).  Each
   time is printed beside the kernel's own time (``chip_smoke.own_ms``, all of
   a kernel's shapes in one profiler session, before the event times).
+- K3 runs on a synthetic frame's VGA terrain peaks at L = 10 (``chip_smoke.
+  check_bump``'s input) at several (pixels a thread, thread rows a block),
+  launch arguments of the committed library, and by other builds at a few of
+  them: ``-DTOD_K3_TABLE=0`` (the ring table's offsets read from device
+  memory in place of the compile-time immediates) and ``-DTOD_K3_MEMO=0``
+  (every bump computed, none read from the memo table).
+- K5 runs on the pinned tree's largest kernel (1152x288, as in
+  ``chip_smoke.check_k5``): the memset, the column-maximum kernel and the
+  quantize kernel, whose own times are summed.
 
 Every build goes into ``build/tod_tpu_torch/sweep/``; every output is
 checked against the committed kernel's on the same inputs, and a device time
@@ -47,7 +57,12 @@ RELAX_TILES = [(8, (40, 59)), (8, (60, 40)), (8, (20, 120)), (6, (30, 80)), (9, 
 WALK_SHAPES = [(256, 8), (256, 1), (512, 1), (1024, 2), (1024, 1)]  # (threads, blocks per SM)
 K1_TILES = [(32, 2), (32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 4)]  # (pixels, groups)
 K2_ROWS = [1, 2, 3, 4, 6, 8]
-SECTIONS = ("relax", "walk", "k1", "k2")
+K3_TILES = [(1, 2), (1, 4), (1, 8), (1, 16), (2, 2), (2, 4), (2, 8), (2, 16), (4, 1), (4, 2),
+            (4, 4), (4, 8)]
+# builds of csrc/bump.cu beside the committed one, and the tilings each runs at
+K3_BUILDS = {"table": ["-DTOD_K3_TABLE=0"], "nomemo": ["-DTOD_K3_MEMO=0"]}
+K3_BUILD_TILES = [(1, 4), (2, 4), (4, 2), (4, 4)]
+SECTIONS = ("relax", "walk", "k1", "k2", "k3", "k5")
 
 
 def main(argv: list[str]) -> int:
@@ -61,12 +76,14 @@ def main(argv: list[str]) -> int:
 
     import chip_smoke
     from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels.bump import SIGNATURES as K3_SIG
     from tod_tpu_torch.kernels.connections import SIGNATURES as K2_SIG
     from tod_tpu_torch.kernels.path_walk import SIGNATURES as WALK_SIG
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import SIGNATURES as RELAX_SIG
     from tod_tpu_torch.kernels.relax import (SMEM_LIMIT, bellman_ford_grid, region_fits,
                                              relax_tiling, smem_bytes)
+    from tod_tpu_torch.ops.quantize import SIGNATURES as K5_SIG
     from tod_tpu_torch.planner.dijkstra import start_node_yx
 
     if not torch.cuda.is_available():
@@ -91,6 +108,8 @@ def main(argv: list[str]) -> int:
         start(("grid_barrier",), ROOT / "tools" / "grid_barrier.cu", [])
     if "k2" in sections:
         start(("connections", "coalesced"), _build.CSRC / "connections.cu", ["-DTOD_K2_BULK=0"])
+    for name, defines in K3_BUILDS.items() if "k3" in sections else ():
+        start(("bump", name), _build.CSRC / "bump.cu", defines)
     libs, regs = {}, {}
     for key, (proc, so) in jobs.items():
         log, _ = proc.communicate()
@@ -100,12 +119,13 @@ def main(argv: list[str]) -> int:
         regs[key] = found[0] if found else "?"
         libs[key] = ctypes.CDLL(str(so))
     for key, lib in libs.items():
-        signatures = {"relax": RELAX_SIG, "path_walk": WALK_SIG, "connections": K2_SIG}.get(
+        signatures = {"relax": RELAX_SIG, "path_walk": WALK_SIG, "connections": K2_SIG,
+                      "bump": K3_SIG, "quantize": K5_SIG}.get(
             key[0], {"tod_grid_barriers": ([ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)})
-        entry, (argtypes, restype) = next(iter(signatures.items()))
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = argtypes, restype
-        libs[key] = fn
+        for entry, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
+        libs[key] = lib if key[0] in ("bump", "quantize") else getattr(lib, next(iter(signatures)))
     print(chip_smoke.nvidia_smi_line(), flush=True)
 
     dev = torch.device("cuda", 0)
@@ -139,6 +159,11 @@ def main(argv: list[str]) -> int:
         k1_sweep(torch, np, dev, sms, stream)
     if "k2" in sections:
         k2_sweep(torch, height, sms, stream, libs["connections", "coalesced"])
+    if "k3" in sections:
+        k3_sweep(torch, np, dev, sms, stream, {name: libs["bump", name] for name in K3_BUILDS},
+                 regs)
+    if "k5" in sections:
+        k5_sweep(torch, np, dev, sms, stream)
     tilings = [relax_tiling(h, w, sms, k) for k in RELAX_K] if "relax" in sections else []
     tilings += [relax_tiling(h, w, sms, k, tile) for k, tile in RELAX_TILES] if tilings else []
     print(f"relax at ({h},{w}), {n_sweeps} sweeps, {sms} SMs; the committed tiling is "
@@ -260,6 +285,94 @@ def k2_sweep(torch, height, sms, stream, coalesced) -> None:
               f"{chip_smoke.fmt(own_ms)} ms; equal to the committed kernel={same}", flush=True)
         if not same:
             raise AssertionError(f"K2 {route} at {rows} rows disagrees with the committed kernel")
+
+
+def k3_sweep(torch, np, dev, sms, stream, builds, regs) -> None:
+    """K3 at each (pixels, rows) by the committed library, and each build
+    of ``builds`` at ``bump_tiling``'s tiling; outputs equal (NaN where NaN)
+    to the committed kernel's at its own tiling."""
+    import chip_smoke
+    from tod_tpu_torch.core.config import CameraConfig, GeometryConfig
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels import bump as k3
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    geom = GeometryConfig()
+    f = synth_frame_numpy(0, 0, 480, 640)
+    ext = chip_smoke.terrain_peaks(
+        torch, np, torch.from_numpy(f.depth.astype(np.int32)).to(dev),
+        torch.from_numpy(chip_smoke.color_class_map(np, f.rgb)).to(dev), CameraConfig(), geom)
+    L, err, shape = geom.terrain_norm_const, geom.bump_err, (480, 640)
+    h, w = shape
+    hp, wp = ext.shape
+    want = k3.dilate_peaks(ext, L, err, shape)
+    libs = {"committed": _build.load(k3.SOURCE, k3.SIGNATURES), **builds}
+    rings = k3._ring_state(libs["committed"], L, err, dev)  # filled by the call above
+    committed = k3.bump_tiling(h, w, L, sms)
+    print(f"K3 at the VGA terrain {tuple(ext.shape)} -> {shape}, L={L}, {sms} SMs; the "
+          f"committed tiling is {committed}; registers {dict((k[1], v) for k, v in regs.items() if k[0] == 'bump')}",
+          flush=True)
+
+    def dilate(lib, pixels, rows):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        e = lib.tod_bump(ext.data_ptr(), hp, wp, out.data_ptr(), h, w, (hp - h) // 2, L, err,
+                         rings.table.data_ptr(), 4 * L * L, rings.memo.shape[0], pixels, rows,
+                         rings.memo.data_ptr(), k3.MEMO_VALUES, stream)
+        if e:
+            raise RuntimeError(f"bump launch failed: CUDA error {e}")
+        return out
+
+    cases = [("committed", p, r) for p, r in K3_TILES]
+    cases += [(name, p, r) for name in builds for p, r in K3_BUILD_TILES]
+    calls = [(lambda n=n, p=p, r=r: dilate(libs[n], p, r), "bump_kernel") for n, p, r in cases]
+    _, own = chip_smoke.own_ms(torch, calls)
+    for (name, pixels, rows), (call, _), own_ms in zip(cases, calls, own):
+        got = call()
+        same = bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+        ms, _ = chip_smoke.time_ms(call, torch)
+        t = k3.bump_tiling(h, w, L, sms, pixels, rows)
+        print(f"K3 {name} pixels={pixels} rows={rows} blocks={t.blocks} threads={t.threads}: "
+              f"{ms:.5f} ms, own {chip_smoke.fmt(own_ms)} ms; equal to the committed kernel={same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"K3 {name} at {pixels}x{rows} disagrees with the committed kernel")
+
+
+def k5_sweep(torch, np, dev, sms, stream) -> None:
+    """K5 by a direct call of the committed library: its own time (memset
+    and both kernels) and its event time; output equal to the wrapper's."""
+    import chip_smoke
+    from tod_tpu_torch.core.weights import read_tree
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.ops import quantize as k5
+
+    tree = read_tree()
+    key = max((k for k in tree if k.endswith("/kernel")), key=lambda k: tree[k].size)
+    x = torch.from_numpy(tree[key].reshape(-1, tree[key].shape[-1]).astype(np.float32)).to(dev)
+    n, c = x.shape
+    want = k5.quantize_tensor_pallas(x, seed=7)
+    lib = _build.load(k5.SOURCE, k5.SIGNATURES)
+    print(f"K5 at {key} {(n, c)}, {sms} SMs", flush=True)
+
+    amax_bits = torch.empty(c, dtype=torch.int32, device=dev)
+
+    def quantize():
+        q = torch.empty((n, c), dtype=torch.int8, device=dev)
+        scale = torch.empty((1, c), dtype=torch.float32, device=dev)
+        e = lib.tod_quantize(x.data_ptr(), n, c, 7, q.data_ptr(), scale.data_ptr(),
+                             amax_bits.data_ptr(), sms, stream)
+        if e:
+            raise RuntimeError(f"quantize launch failed: CUDA error {e}")
+        return q, scale
+
+    _, (own_ms,) = chip_smoke.own_ms(torch, [(quantize, chip_smoke.K5_PARTS)])
+    q, scale = quantize()
+    same = torch.equal(q, want[0]) and torch.equal(scale, want[1])
+    ms, _ = chip_smoke.time_ms(quantize, torch)
+    print(f"K5: {ms:.5f} ms, own {chip_smoke.fmt(own_ms)} ms (memset and both kernels); equal "
+          f"to the wrapper's={same}", flush=True)
+    if not same:
+        raise AssertionError("K5 by the library disagrees with the wrapper")
 
 
 if __name__ == "__main__":
