@@ -43,7 +43,14 @@ Phases, each printed as it ends:
 11. each kernel's own device time: the median duration of its kernel over
    50 more calls of phase 3's timed call, from ``torch.profiler`` (last,
    since a profiler session leaves the host slower at launching and the
-   phases before are timed on the host).
+   phases before are timed on the host);
+12. the bench (``tod_tpu_torch.bench``): ``fuse_scene_batch`` at batch 8
+   on the card exactly equal to ``fuse_scene`` frame by frame (K4 and K2
+   once a map) and at batch 2 to the CPU; then, with the serve path's
+   launch counts reset before and read after, configs 2, 3, 4, 7 and 14 and
+   the headline (with one cold and one warm boot child) in this process at
+   reduced counts, each line held: a positive value and fps, 0 < mfu <= 1,
+   0 <= idle_share <= 1, the card's name, a cold boot slower than the warm.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -1092,6 +1099,73 @@ def host_planner(torch, np, state, counters):
     return launches
 
 
+def bench_phase(torch, np, counters) -> None:
+    """Phase 12: ``fuse_scene_batch`` exact on the card, then the bench's
+    configs and headline at reduced counts through the serve path's
+    kernels, each line's fields held."""
+    from tod_tpu_torch.bench import configs, headline
+    from tod_tpu_torch.geometry.fusion import fuse_scene, fuse_scene_batch
+
+    t = time.time()
+    cfg = configs._pipeline_cfg()
+    cam, geom = cfg.camera, cfg.geometry
+    maps = [torch.from_numpy(a) for a in configs.fusion_inputs(8, (cam.height, cam.width))]
+    maps[0] = maps[0].to(torch.int32)
+    card = [m.cuda() for m in maps]
+    fields = ("height", "pos", "balls", "connections")
+    reset(counters)
+    batch = fuse_scene_batch(*card, cam, geom)
+    launches = read(counters)
+    if launches["bump"] != 8 or launches["connections"] != 8:
+        raise AssertionError(f"fuse_scene_batch at batch 8 did not launch K4 and K2 once a "
+                             f"map: {launches}")
+    for j in range(8):
+        one = fuse_scene(*(m[j] for m in card), cam, geom)
+        for f in fields:
+            if not torch.equal(getattr(batch, f)[j], getattr(one, f)):
+                raise AssertionError(f"fuse_scene_batch {f}[{j}] differs from fuse_scene")
+    cpu = fuse_scene_batch(*(m[:2] for m in maps), cam, geom)
+    for f in fields:
+        if not torch.equal(getattr(batch, f)[:2].cpu(), getattr(cpu, f)):
+            raise AssertionError(f"fuse_scene_batch {f} on the card differs from the CPU")
+    log(f"  fuse_scene_batch (8, {cam.height}, {cam.width}): equal to fuse_scene frame by "
+        f"frame, bit for bit, and at batch 2 to the CPU; launches {launches}")
+
+    dev = torch.device("cuda", 0)
+    reset(counters)
+    lines = [configs.run_config(2, dev, n=10), configs.run_config(3, dev, n=10),
+             configs.run_config(4, dev, n=10), configs.run_config(7, dev, k=8),
+             configs.run_config(14, dev, k=4)]
+    lines.append(headline.measure(dev, n_frames=40, runs=1, bounded_runs=1, k=16))
+    launches = read(counters)
+    for line in lines:
+        log("  " + json.dumps(line))
+    if [n for n, c in launches.items() if c == 0]:
+        raise AssertionError(f"kernels never launched on the bench path: {launches}")
+    head = lines[-1]
+    mfus = [lines[3]["mfu"], head["mfu"], *(p["mfu"] for p in lines[4]["curve"])]
+    problems = [
+        *(f"{line.get('config', 'headline')}: value {line['value']}" for line in lines
+          if not line["value"] > 0),
+        *(f"no device name in {line['metric']}" for line in lines
+          if not line["device"].get("name")),
+        *(f"mfu {m} not in (0, 1]" for m in mfus if m is None or not 0 < m <= 1),
+    ]
+    if not head["fps_e2e_320x240_b1"] > 0 or not head["bounded_fps"] > 0:
+        problems.append(f"headline fps {head['fps_e2e_320x240_b1']}, {head['bounded_fps']}")
+    if head["idle_share"] is None or not 0 <= head["idle_share"] <= 1:
+        problems.append(f"idle_share {head['idle_share']}")
+    if head["profiled"]["timeline"] != "cuda":
+        problems.append(f"idle_share read from the {head['profiled']['timeline']} timeline")
+    if not head["boot_cold_s"] > head["boot_warm_s"] > 0:
+        problems.append(f"boot cold {head['boot_cold_s']} s, warm {head['boot_warm_s']} s")
+    if problems:
+        raise AssertionError("bench lines out of range: " + "; ".join(problems))
+    log(f"  bench launches {launches}; boot cold {head['boot_cold_s']} s "
+        f"{head['boot_cold_stages']}, warm {head['boot_warm_s']} s {head['boot_warm_stages']}")
+    log(f"  phase 12 took {time.time() - t:.1f}s")
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -1212,6 +1286,9 @@ def main() -> int:
 
     log("== 11. each kernel's own device time")
     own_times(torch, kernels, floor_ms)
+
+    log("== 12. the bench")
+    bench_phase(torch, np, serving)
 
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump)

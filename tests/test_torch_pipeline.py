@@ -423,19 +423,22 @@ rc = tod_tpu_torch.app.main(["--frames", "2", "--width", "64", "--height", "48",
                              "--no-server"], device="cpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tod_tpu")
                 and sys.modules[m] is not None)
-print(len(mods), int(plan[0, 0]), rc, loaded)
+bench = sorted(m for m in mods if m.startswith("tod_tpu_torch.bench"))
+print(len(mods), int(plan[0, 0]), rc, ",".join(bench), loaded)
 """
 
 
 def test_port_runs_without_jax():
     """The card's machine has no jax, flax, msgpack, orbax or PIL: import
-    every port module with those blocked, load the pinned weights, serve
-    one frame and run the app for two frames."""
+    every port module (the bench's among them) with those blocked, load the
+    pinned weights, serve one frame and run the app for two frames."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    n_mods, n_valid, rc, loaded = out.stdout.split(maxsplit=3)
-    assert int(n_mods) >= 20 and int(n_valid) > 5
+    n_mods, n_valid, rc, bench, loaded = out.stdout.split(maxsplit=4)
+    assert int(n_mods) >= 51 and int(n_valid) > 5
+    assert bench.split(",") == [f"tod_tpu_torch.bench{m}" for m in (
+        "", ".__main__", ".boot", ".configs", ".headline", ".mfu", ".profiling")]
     assert int(rc) == 0
     assert loaded.strip() == "[]"

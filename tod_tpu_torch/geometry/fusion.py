@@ -6,7 +6,8 @@ scatter-max per birdseye cell, the terrain bump dilation (kernel K3 in
 16-row strips with ``GeometryConfig.pallas_bump``, kernel K4 over the whole
 map otherwise: on the card both launch the one kernel of ``csrc/bump.cu``)
 and the robot bump dilation, ball centroids by instance id, and the
-8-neighbour connection weights (kernel K2).
+8-neighbour connection weights (kernel K2).  ``fuse_scene_batch`` fuses a
+batch of frames, one ``fuse_scene`` each.
 Every step mirrors the float32 operations of the JAX reference in the same
 order; the transcendental functions (tan, atan, cos, pow) come from torch's
 libraries and may differ from XLA's by an ulp.
@@ -178,3 +179,15 @@ def fuse_scene(depth_mm, cls_map, id_map, cam: CameraConfig, geom: GeometryConfi
     balls = ball_centroids(depth_mm, cls_map, id_map, cam, geom)
     pos, conns = connection_weights(height)
     return Scene(height=height, pos=pos, balls=balls, connections=conns)
+
+
+def fuse_scene_batch(depth_mm, cls_map, id_map, cam: CameraConfig, geom: GeometryConfig) -> Scene:
+    """(B, H, W) depth, class and id maps -> :class:`Scene` of (B, ...) fields.
+
+    The JAX package vmaps ``fuse_scene``'s plain forms; here each frame goes
+    through :func:`fuse_scene` in turn, so that on the card every map runs
+    the kernels (K4, K2), which take one map a launch, and the result equals
+    ``fuse_scene`` frame by frame bit for bit."""
+    scenes = [fuse_scene(d, c, i, cam, geom) for d, c, i in zip(depth_mm, cls_map, id_map)]
+    return Scene(**{f: torch.stack([getattr(s, f) for s in scenes])
+                    for f in ("height", "pos", "balls", "connections")})

@@ -7,6 +7,7 @@ rebuilt and a stale library is never loaded.  A build writes to a temporary
 name and renames it into place, so concurrent builders need no lock file.
 Several sources build in parallel, one nvcc process each.  ``build_host``
 takes the same route with g++ for the host's C++ (the native planner).
+``set_build_dir`` points both at another directory before the first build.
 """
 
 from __future__ import annotations
@@ -31,7 +32,23 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_host_built = False  # a host library's path has been handed out (its loader caches it)
 _lock = threading.Lock()
+
+
+def set_build_dir(path: str | os.PathLike) -> pathlib.Path:
+    """Build and load every library in ``path`` from now on, nvcc's and
+    g++'s alike (a boot measured from a cold build points it at an empty
+    directory, a warm boot at the one the cold boot filled).  Raises once a
+    library has been loaded or a host library built: their callers cache
+    them.  Returns the directory."""
+    global BUILD_DIR
+    with _lock:
+        if _loaded or _host_built:
+            raise RuntimeError(f"set_build_dir({str(path)!r}) after a library was loaded "
+                               f"from {BUILD_DIR}")
+        BUILD_DIR = pathlib.Path(path).resolve()
+        return BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -107,11 +124,13 @@ def build_host(src: pathlib.Path) -> pathlib.Path:
     """Compile a host C++ source with g++ (``$CXX`` if set) into a shared
     library in ``BUILD_DIR`` unless it is there; returns its path, raises
     with g++'s output if the compile fails."""
+    global _host_built
     out = _hashed_path(src, GXX_FLAGS)
     if not out.exists():
         log, ok = _finish(*_start([os.environ.get("CXX", "g++"), *GXX_FLAGS], src, out), out)
         if not ok:
             raise RuntimeError(f"g++ failed for {src.name}:\n{log}")
+    _host_built = True
     return out
 
 
