@@ -9,9 +9,11 @@ Phases, each printed as it ends:
 2. the build of every kernel in ``tod_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and of the native host planner with g++;
 3. each kernel (mask assembly, connection weights, the relaxation, the path
-   walk, the terrain dilation K3/K4, the stochastic quantizer K5) against its
-   plain torch version on the card, at the main path's shapes and ragged
-   ones, and its device time (CUDA events, median of 50 calls after a
+   walk, the terrain dilation K3/K4, the stochastic quantizer K5, the
+   connected-components labels) against its plain torch version on the
+   card, at the main path's shapes and ragged ones (the cc kernel bit for
+   bit at 64x64 and below, and at 480x640 and 479x641 against
+   ``scipy.ndimage.label``), and its device time (CUDA events, median of 50 calls after a
    warm-up, enqueued behind a sleep kernel) beside the plain version's and a
    library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
@@ -41,7 +43,8 @@ Phases, each printed as it ends:
    ``PlannerConfig(backend="native")`` streamed through ``run_supervised``
    for 8 frames, every frame planned by the native planner on the host;
 11. each kernel's own device time: the median duration of its kernel over
-   50 more calls of phase 3's timed call, from ``torch.profiler`` (last,
+   50 more calls of phase 3's timed call, from ``torch.profiler``, and of
+   each kernel apart where a call launches several (last,
    since a profiler session leaves the host slower at launching and the
    phases before are timed on the host);
 12. the bench (``tod_tpu_torch.bench``): ``fuse_scene_batch`` at batch 8
@@ -50,7 +53,18 @@ Phases, each printed as it ends:
    launch counts reset before and read after, configs 2, 3, 4, 7 and 14 and
    the headline (with one cold and one warm boot child) in this process at
    reduced counts, each line held: a positive value and fps, 0 < mfu <= 1,
-   0 <= idle_share <= 1, the card's name, a cold boot slower than the warm.
+   0 <= idle_share <= 1, the card's name, a cold boot slower than the warm;
+13. semantic mode (``Engine(mode="semantic")``) at the app's configuration:
+   one ``serve_step_plan`` frame under ``set_sync_debug_mode("error")``,
+   then 8 frames with the path's launch counts (the cc kernel and K4 once a
+   frame), the cc kernel on a served frame's ball mask against its plain
+   version and scipy, and ``Engine._step`` on the card against the CPU's
+   at the same configuration in f32 (TF32 off): the class maps within a
+   share of differing pixels, the ids exact on the same class map;
+14. ``python3 -m tod_tpu_torch.app --mode semantic --source ring
+   --auth-token`` with a client that authenticates and sends ``GetPath``
+   and ``GetStat``, then ``--source png --checkpoint --debug-dump`` in a
+   temporary directory, whose BMPs must exist.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -169,13 +183,22 @@ def fmt(ms: float | None) -> str:
 
 def own_times(torch, kernels, floor_ms: float) -> None:
     """Set each kernel row's ``own_ms`` from its ``own`` entry (the call and
-    the kernel's name), beside an empty kernel's."""
-    floor, own = own_ms(torch, [k.pop("own") for k in kernels])
+    the kernel's name), beside an empty kernel's.  Where a call makes several
+    device activities (a tuple of names), each one's own time is also taken
+    and logged on its own."""
+    calls = [k.pop("own") for k in kernels]
+    split = [(i, fn, part) for i, (fn, parts) in enumerate(calls)
+             if not isinstance(parts, str) for part in parts]
+    floor, own = own_ms(torch, calls + [(fn, part) for _, fn, part in split])
     for k, ms in zip(kernels, own):
         k["own_ms"] = ms
     log(f"  own device ms (median of 50 calls, torch.profiler; an empty kernel {fmt(floor)}, "
         f"{floor_ms:.5f} by events): "
         + ", ".join(f"{k['name']} {fmt(k['own_ms'])} (events {k['ms']:.5f})" for k in kernels))
+    for i in sorted({i for i, _, _ in split}):
+        log(f"  {kernels[i]['name']} own ms by part (median of 50 calls each): "
+            + ", ".join(f"{part} {fmt(ms)}" for (j, _, part), ms in
+                        zip(split, own[len(calls):]) if j == i))
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_FLOPS) -> tuple[float, str]:
@@ -662,6 +685,94 @@ def check_k5(torch, np, rng, device):
     }
 
 
+CC_PARTS = ("cc_init_kernel", "cc_merge_kernel", "cc_flatten_kernel")
+
+
+def serpentine(np, h, w):
+    """Rows joined alternately at their right and left ends: one component
+    whose graph diameter is about H*W/2 (the plain loop's worst case)."""
+    m = np.zeros((h, w), bool)
+    m[::2] = True
+    for r in range(1, h, 2):
+        m[r, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def scipy_ids(np, mask, max_labels):
+    """The independent oracle: scipy's 4-connected labels, numbered from 1
+    in row-major order of each component's first pixel."""
+    import scipy.ndimage
+
+    lab, n = scipy.ndimage.label(mask)
+    return np.where(lab > 0, np.minimum(lab - 1, max_labels - 1), -1).astype(np.int32), n
+
+
+def cc_masks(np, gen, h, w):
+    return {"random p=0.5": gen.random((h, w)) < 0.5, "serpentine": serpentine(np, h, w),
+            "checkerboard": (np.indices((h, w)).sum(0) % 2).astype(bool),
+            "full": np.ones((h, w), bool), "empty": np.zeros((h, w), bool)}
+
+
+def hold_cc(torch, np, mask, name, plain=True) -> None:
+    """The cc kernel on ``mask`` against its plain version bit for bit
+    (``plain``) and, through the compaction, against the scipy oracle with
+    no clamp and with the main path's 100 labels."""
+    from tod_tpu_torch.kernels.cc_labels import plain_root_labels, root_labels
+    from tod_tpu_torch.ops.cc_labels import compact_labels
+
+    card = torch.from_numpy(mask).cuda()
+    labels = root_labels(card)
+    torch.cuda.synchronize()
+    same = torch.equal(labels.cpu(), plain_root_labels(card).cpu()) if plain else None
+    h, w = mask.shape
+    oracle = {}
+    for cap in (h * w, 100):
+        want, n = scipy_ids(np, mask, cap)
+        oracle[cap] = bool((compact_labels(labels, cap).cpu().numpy() == want).all())
+    log(f"  cc_labels {name} {h}x{w}: {n} components; root labels equal to the plain loop "
+        f"{'not run (its sweeps are ~H*W/2 here)' if same is None else same} (tol exact); "
+        f"ids equal to scipy.ndimage.label: uncapped {oracle[h * w]}, capped at 100 "
+        f"{oracle[100]} (tol exact)")
+    if same is False or not all(oracle.values()):
+        raise AssertionError(f"the cc kernel disagrees on {name} {h}x{w}")
+
+
+def check_cc(torch, np, rng, device):
+    from tod_tpu_torch.core.config import CameraConfig
+    from tod_tpu_torch.kernels.cc_labels import plain_root_labels, root_labels
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    gen = np.random.default_rng(3)
+    for h, w in ((64, 64), (37, 53), (1, 1), (1, 64), (64, 1)):
+        for name, mask in cc_masks(np, gen, h, w).items():
+            hold_cc(torch, np, mask, name)
+    for h, w in ((480, 640), (479, 641)):
+        for name, mask in cc_masks(np, gen, h, w).items():
+            hold_cc(torch, np, mask, name, plain=name != "serpentine")
+    # the main path's shape and kind of input: the balls of a synthetic frame
+    cam = CameraConfig()
+    f = synth_frame_numpy(0, 3, cam.height, cam.width)
+    balls = torch.from_numpy(color_class_map(np, f.rgb) == 3).to(device)
+    hold_cc(torch, np, balls.cpu().numpy(), "synthetic balls")
+    ms, wall = time_ms(lambda: root_labels(balls), torch)
+    plain_ms, plain_wall = time_ms(lambda: plain_root_labels(balls), torch)
+    h, w = balls.shape
+    # the mask read once (1 byte a pixel), the int32 labels written once; a
+    # handful of integer operations a pixel (ALU_OPS)
+    bms, by = bound_ms(5.0 * h * w, 8.0 * h * w, ALU_OPS)
+    log(f"  cc_labels times at ({h},{w}), {int(balls.sum())} ball pixels: kernel_ms={ms:.5f} "
+        f"(three launches) plain_ms={plain_ms:.5f} (the propagation loop, a host read a sweep) "
+        f"bound_ms={bms:.6f} ({by}); library: none (no one torch call labels components); "
+        f"wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
+    return {
+        "name": "cc_labels", "route": "cuda", "source": "tod_tpu_torch/csrc/cc_labels.cu",
+        "replaces": "tod_tpu/ops/cc_labels.py:35",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (lambda: root_labels(balls), CC_PARTS),
+    }
+
+
 def reset(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
@@ -772,8 +883,10 @@ def stage_profile(torch, eng, packed, kernel_names) -> None:
         return
     rows = {name: (round(e.device_time_total / 1e3, 3), round(e.cpu_time_total / 1e3, 3))
             for name, e in stages.items()}
+    parts = {name: CC_PARTS if name == "cc_labels" else (f"{name}_kernel",) for name in kernel_names}
     ours = {name: round(sum(e.time_range.elapsed_us() for e in events
-                            if e.device_type == DeviceType.CUDA and f"{name}_kernel" in e.name) / 1e3, 4)
+                            if e.device_type == DeviceType.CUDA
+                            and any(part in e.name for part in parts[name])) / 1e3, 4)
             for name in kernel_names}
     log(f"  stage profile of one frame, (device ms, host ms) per range: {rows}")
     log(f"  hand-written kernels' device ms in that frame: {ours}")
@@ -1166,6 +1279,203 @@ def bench_phase(torch, np, counters) -> None:
     log(f"  phase 12 took {time.time() - t:.1f}s")
 
 
+def semantic_path(torch, np, state, counters):
+    """Phase 13: ``Engine(mode="semantic")`` at the app's configuration
+    (640x480 camera, model at 480x640, bf16, pinned weights): one
+    ``serve_step_plan`` frame under ``set_sync_debug_mode("error")``, then 8
+    frames with the path's launch counts (the cc kernel and K4 once a frame,
+    K1 never); the cc kernel on a served frame's real ball mask against its
+    plain version and scipy; a card-against-CPU check in f32 with TF32 off."""
+    from tod_tpu_torch.core.config import ModelConfig, PipelineConfig
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+
+    cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640)))
+    eng = Engine(cfg, state, device="cuda", mode="semantic")
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(cfg.camera, seed=0, n_frames=N_FRAMES + 1).frames()]
+    t = time.time()
+    eng.serve_step_plan(frames[0])
+    torch.cuda.synchronize()
+    log(f"  engine: mode semantic, camera {cfg.camera.width}x{cfg.camera.height}, model input "
+        f"{cfg.model.input_size} {cfg.model.dtype}; warm-up frame {1e3 * (time.time() - t):.1f} ms")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        plan = eng.serve_step_plan(frames[1])
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
+    log(f"  one semantic frame under set_sync_debug_mode('error'): no host synchronisation; "
+        f"enqueued in {enqueue_ms:.2f} ms")
+    reset(counters)
+    per_frame, n_valid, balls = [], [], []
+    for packed in frames[1:]:
+        t = time.perf_counter()
+        buf = eng.serve_step_plan(packed).cpu().numpy()
+        per_frame.append(1e3 * (time.perf_counter() - t))
+        n_valid.append(check_plan(np, buf, cfg.planner.max_path_steps))
+    launches = read(counters)
+    with torch.inference_mode():
+        _, dets = eng._step(frames[1])
+    ball_mask = (dets.class_map == 3).cpu().numpy()
+    hold_cc(torch, np, ball_mask, "served frame's ball mask")
+    stage_profile(torch, eng, frames[1], counters)
+    log(f"  ms per semantic frame: {[round(x, 2) for x in per_frame]} "
+        f"(median {statistics.median(per_frame):.2f}); plan n_valid {n_valid}; ball pixels "
+        f"{int(ball_mask.sum())}, ids {int(dets.id_map.max()) + 1}")
+    log(f"  launches over {N_FRAMES} semantic frames: {launches}")
+    if launches["cc_labels"] != N_FRAMES or launches["bump"] != N_FRAMES:
+        raise AssertionError(f"the cc kernel and K4 did not run once a frame: {launches}")
+    if launches["mask_assembly"] or min(launches[k] for k in ("connections", "relax",
+                                                              "path_walk")) == 0:
+        raise AssertionError(f"kernels not launched as expected on the semantic path: {launches}")
+    if max(n_valid) == 0 or not ball_mask.any():
+        raise AssertionError("no semantic frame saw a ball or produced a path to one")
+    semantic_reference_check(torch, np, state)
+    return launches, statistics.median(per_frame)
+
+
+def semantic_reference_check(torch, np, state):
+    """``Engine._step``'s semantic branch at the app's configuration (640x480
+    camera, model at 480x640), f32 with TF32 off, on the card against the
+    CPU: the class maps with their share of differing pixels bounded; the
+    card's id map exact against the CPU's labelling of the card's class map,
+    and against the CPU engine's id map where the two class maps agree."""
+    from tod_tpu_torch.core.config import ModelConfig, PipelineConfig
+    from tod_tpu_torch.ops.cc_labels import connected_components
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640), dtype="float32"))
+    cam_hw = (cfg.camera.height, cfg.camera.width)
+    engines = {d: Engine(cfg, state, device=d, mode="semantic") for d in ("cpu", "cuda")}
+    for t in (0, 7):
+        f = synth_frame_numpy(0, t, *cam_hw)
+        packed = torch.from_numpy(pack_frame(f.rgb, f.depth))
+        with torch.inference_mode():
+            dets = {d: e._step(packed)[1] for d, e in engines.items()}
+        cls = {d: x.class_map.cpu() for d, x in dets.items()}
+        ids = {d: x.id_map.cpu() for d, x in dets.items()}
+        shapes_ok = all(tuple(c.shape) == cam_hw for c in (*cls.values(), *ids.values()))
+        diff = (cls["cuda"] != cls["cpu"]).float().mean().item()
+        mask = cls["cuda"] == 3
+        # the card's ids against the CPU's labelling of the card's class map
+        own_ids = torch.equal(ids["cuda"], connected_components(mask, cfg.geometry.max_balls))
+        # against the CPU engine's ids, where the class maps agree
+        same_cls = torch.equal(cls["cuda"], cls["cpu"])
+        engine_ids = torch.equal(ids["cuda"], ids["cpu"]) if same_cls else None
+        log(f"  semantic Engine._step t={t} at {cam_hw}: class-map pixels differing card vs CPU="
+            f"{diff:.2e} (tol 1e-3), ball pixels {int(mask.sum())}, "
+            f"{int(ids['cuda'].max()) + 1} ids; card ids equal to the CPU's labelling of the "
+            f"card's class map={own_ids} (tol exact); equal to the CPU engine's ids="
+            f"{'not compared (class maps differ)' if engine_ids is None else engine_ids} "
+            f"(tol exact)")
+        if not (shapes_ok and diff <= 1e-3 and own_ids and engine_ids is not False
+                and mask.any()):
+            raise AssertionError(f"semantic card and CPU disagree on frame t={t}")
+
+
+def run_app(root, args, talk=None, cwd=None, timeout=300):
+    """``python3 -m tod_tpu_torch.app ARGS --metrics-json`` as a
+    subprocess; with ``talk``, ``talk(port)`` once it logs its server's
+    port.  Returns (metrics, talk's answer, seconds)."""
+    import os
+
+    cmd = [sys.executable, "-m", "tod_tpu_torch.app", *args, "--metrics-json"]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t = time.time()
+    proc = subprocess.Popen(cmd, cwd=cwd or root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        answer, seen = None, []
+        if talk is not None:
+            port = None
+            for line in proc.stderr:
+                seen.append(line)
+                if "path server on" in line:
+                    port = int(line.rsplit(":", 1)[1])
+                    break
+            if port is None:
+                raise AssertionError("the app never logged its port:\n" + "".join(seen[-20:]))
+            answer = talk(port)
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the app exited {proc.returncode}:\n{(''.join(seen) + err)[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1]), answer, time.time() - t
+
+
+def semantic_apps(root, np) -> float:
+    """Phase 14: the app in semantic mode on the native ring with a token,
+    and a client that authenticates, then sends GetPath and GetStat; then
+    the app on a PNG (written by the port's own PNG writer) with
+    ``--checkpoint`` (the pinned npz) and ``--debug-dump`` in a temporary
+    directory, whose BMPs must exist."""
+    import tempfile
+
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+    from tod_tpu_torch.utils.image_io import save_rgb
+
+    token = b"chip-smoke-token"
+
+    def talk(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            sock.sendall(b"AuthTok" + len(token).to_bytes(4, "big") + token + b"GetPath")
+            data = b""
+            while len(data) < 10:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                data += chunk
+            if data[:2] != b"OK":
+                raise AssertionError(f"AuthTok answered {data[:2]!r}")
+            sock.sendall(b"GetStat")
+            stat = b""
+            while len(stat) < 4 or len(stat) < 4 + int.from_bytes(stat[:4], "big"):
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                stat += chunk
+            return json.loads(stat[4:])
+
+    n = 64
+    metrics, stat, secs = run_app(root, ["--mode", "semantic", "--source", "ring", "--auth-token",
+                                         token.decode(), "--frames", str(n), "--port", "0"], talk)
+    log(f"  app --mode semantic --source ring --auth-token: rc 0 in {secs:.1f}s, "
+        f"n_frames={metrics['n_frames']}, fps={metrics['fps']:.3f}, plans_done="
+        f"{metrics['plans_done']}, last_path_len={metrics['last_path_len']}; GetStat after "
+        f"AuthTok + GetPath: requests {stat['requests']}")
+    req = stat["requests"]
+    if (metrics["n_frames"] != n or req["AuthTok"] != 1 or req["GetPath"] != 1
+            or req["unauthorized"] or "pipeline" not in stat):
+        raise AssertionError("the semantic ring app fell short")
+    fps = metrics["fps"]
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        png = pathlib.Path(tmp) / "scene.png"
+        save_rgb(png, synth_frame_numpy(0, 5, 224, 224).rgb)
+        ckpt = root / "tod_tpu_torch" / "weights" / "yolact_dr.npz"
+        metrics, _, secs = run_app(root, ["--source", "png", "--image", str(png), "--checkpoint",
+                                          str(ckpt), "--debug-dump", "--frames", "16",
+                                          "--no-server"], cwd=tmp)
+        bmps = {p.name: p.stat().st_size for p in pathlib.Path(tmp).glob("*.bmp")}
+    log(f"  app --source png --checkpoint --debug-dump: rc 0 in {secs:.1f}s, n_frames="
+        f"{metrics['n_frames']}, fps={metrics['fps']:.3f}, plans_done={metrics['plans_done']}; "
+        f"BMPs {bmps}")
+    want = {"depth.bmp", "map.bmp", "connections0.bmp", "connections1.bmp"}
+    if metrics["n_frames"] != 16 or set(bmps) != want:
+        raise AssertionError(f"the PNG app fell short: {metrics['n_frames']} frames, BMPs {bmps}")
+    return fps
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -1216,11 +1526,12 @@ def main() -> int:
     from tod_tpu_torch.core.weights import load_pinned
     from tod_tpu_torch.kernels import _build
     from tod_tpu_torch.kernels.bump import dilate_peaks, dilate_peaks_strips
+    from tod_tpu_torch.kernels.cc_labels import root_labels
     from tod_tpu_torch.kernels.connections import connection_planes
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import bellman_ford_grid
-    from tod_tpu_torch.native import loader
+    from tod_tpu_torch.native import loader, ring
     from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
     # each path's kernels, with their launch counters
@@ -1231,6 +1542,7 @@ def main() -> int:
                    **planner}
     k4_call = {"bump": dilate_peaks}
     ptq_path = {**serving, "quantize": quantize_tensor_pallas}
+    semantic = {"cc_labels": root_labels, **serving}
 
     log("== 1. device")
     smi = nvidia_smi_line()
@@ -1250,6 +1562,9 @@ def main() -> int:
     if not loader.available():
         raise AssertionError("the native planner did not build")
     log(f"  native planner {_build.build_host(loader.SOURCE).name} ready in {time.time() - t:.1f}s")
+    t = time.time()
+    ring.get()
+    log(f"  native frame ring {_build.build_host(ring.SOURCE).name} ready in {time.time() - t:.1f}s")
 
     log("== 3. kernels against their plain versions")
     rng = np.random.default_rng(0)
@@ -1258,7 +1573,8 @@ def main() -> int:
     log(f"  timing floor (an empty kernel, same method): {floor_ms:.5f} ms")
     kernels = [check_k1(torch, np, rng, device), check_k2(torch, np, rng, device),
                check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
-               *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device)]
+               *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device),
+               check_cc(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
 
     log("== 4. main path")
@@ -1290,16 +1606,25 @@ def main() -> int:
     log("== 12. the bench")
     bench_phase(torch, np, serving)
 
+    log("== 13. semantic mode, app configuration")
+    semantic_launches, semantic_ms = semantic_path(torch, np, state, semantic)
+
+    log("== 14. the app in semantic mode on the ring with auth, and on a PNG")
+    semantic_fps = semantic_apps(root, np)
+
     # launches: each kernel's count on the path it belongs to (K4's on the
-    # default serve path, K3's on the stream path with pallas_bump)
+    # default serve path, K3's on the stream path with pallas_bump, the cc
+    # kernel's on the semantic path)
     launches["bump_strips"] = stream_launches["bump_strips"]
     launches["quantize"] = ptq_launches["quantize"]
+    launches["cc_labels"] = semantic_launches["cc_labels"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
-    log(f"main path median {frame_ms:.2f} ms/frame; total {time.time() - t_start:.1f}s")
+    log(f"main path median {frame_ms:.2f} ms/frame; semantic {semantic_ms:.2f} ms/frame, "
+        f"semantic app {semantic_fps:.3f} fps; total {time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 the JAX package's ``Engine.run`` in device-planner mode, ``run_supervised``
 recovering from a stalled source, TODTRACE files across both packages, the
 stage timer, the watchdog, the paced source, ``GetStat`` with live metrics,
-and ``python -m tod_tpu_torch.app`` (``main``) with its planners and its
-refused flags."""
+and ``python -m tod_tpu_torch.app`` (``main``) with its planners, sources,
+modes and server flags, and its refused flags."""
 
 from __future__ import annotations
 
@@ -269,23 +269,156 @@ def test_main_plans_on_the_host(planner, capsys, caplog):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--source", "png"], "PNGSource"),
-    (["--source", "ring"], "RingSource"),
-    (["--mode", "semantic"], "M9"),
-    (["--checkpoint", "ckpt"], "remaining app flags"),
     (["--todx", "a.todx"], "M15"),
     (["--int8"], "M12"),
     (["--track"], "M10"),
     (["--obstacle-memory", "0.8"], "M10"),
     (["--streams", "2"], "M11"),
     (["--pipeline"], "M16"),
-    (["--auth-token", "secret"], "auth and TLS"),
-    (["--tls-cert", "c.pem", "--tls-key", "k.pem"], "auth and TLS"),
-    (["--debug-dump"], "remaining app flags"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md .*{item}"):
         main(flags + ["--frames", "1", "--no-server"], device="cpu")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_with_client(argv, ask):
+    """Run ``main(argv)`` on a thread (a 20-frame ring at 20 fps: about a
+    second of serving) and call ``ask(port)`` once its server accepts."""
+    import threading
+
+    port = free_port()
+    result: dict = {}
+
+    def app():
+        try:
+            result["rc"] = main(argv + ["--port", str(port)], device="cpu")
+        except BaseException as e:  # handed to the test below
+            result["error"] = e
+
+    t = threading.Thread(target=app, daemon=True)
+    t.start()
+    deadline = time.time() + 60
+    while time.time() < deadline and t.is_alive():
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            break
+        except OSError:
+            time.sleep(0.05)
+    try:
+        answer = ask(port)
+    finally:
+        t.join(timeout=120)
+    assert not t.is_alive() and "error" not in result, result.get("error")
+    assert result["rc"] == 0
+    return answer
+
+
+RING = ["--source", "ring", "--fps", "20", "--frames", "20", "--width", "64", "--height", "48"]
+
+
+def read_stat(sock) -> dict:
+    sock.sendall(b"GetStat")
+    data = b""
+    while len(data) < 4 or len(data) < 4 + int.from_bytes(data[:4], "big"):
+        chunk = sock.recv(65536)
+        if not chunk:
+            break
+        data += chunk
+    return json.loads(data[4:])
+
+
+def ask_with_token(token: bytes):
+    def ask(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.sendall(b"AuthTok" + len(token).to_bytes(4, "big") + token)
+            assert s.recv(2) == b"OK"
+            return read_stat(s)
+    return ask
+
+
+@pytest.mark.parametrize("flag", ["png", "ring", "semantic", "checkpoint", "auth", "tls",
+                                  "debug-dump"])
+def test_ported_flags_run(flag, tmp_path, monkeypatch, capsys, flat_weights):
+    """Each flag the port once refused now serves: two frames, or a ring
+    run with a client talking to the server while it serves."""
+    small = ["--frames", "2", "--width", "64", "--height", "48", "--no-server",
+             "--metrics-json"]
+    if flag == "png":
+        from tod_tpu_torch.utils.image_io import save_rgb
+
+        save_rgb(tmp_path / "scene.png", synth_frame_numpy(0, 3, 224, 224).rgb)
+        assert main(["--source", "png", "--image", str(tmp_path / "scene.png")] + small,
+                    device="cpu") == 0
+        with pytest.raises(SystemExit, match="--source png requires --image"):
+            main(["--source", "png"] + small, device="cpu")
+    elif flag == "ring":
+        assert main(["--source", "ring", "--fps", "100"] + small, device="cpu") == 0
+    elif flag == "semantic":
+        assert main(["--mode", "semantic", "--planner", "tpu", "--plan-every", "1"] + small,
+                    device="cpu") == 0
+    elif flag == "checkpoint":
+        np.savez(tmp_path / "ckpt.npz", **flat_weights)
+        assert main(["--checkpoint", str(tmp_path / "ckpt.npz")] + small, device="cpu") == 0
+        with pytest.raises(SystemExit, match="test_torch_weights.py --write CKPT_DIR OUT.npz"):
+            main(["--checkpoint", str(tmp_path)] + small, device="cpu")
+    elif flag == "auth":
+        stat = run_with_client(RING + ["--auth-token", "T0k"], ask_with_token(b"T0k"))
+        assert stat["requests"]["AuthTok"] == 1 and stat["requests"]["unauthorized"] == 0
+        assert "pipeline" in stat
+    elif flag == "tls":
+        import ssl
+
+        from tests.test_torch_serve_auth import make_cert
+
+        cert, key = make_cert(tmp_path, "app")
+        ctx = ssl.create_default_context(cafile=cert)
+
+        def ask(port):
+            with socket.create_connection(("127.0.0.1", port), timeout=10) as raw:
+                with ctx.wrap_socket(raw, server_hostname="localhost") as s:
+                    return read_stat(s)
+
+        stat = run_with_client(RING + ["--tls-cert", cert, "--tls-key", key], ask)
+        assert stat["requests"]["GetStat"] == 1
+    else:
+        monkeypatch.chdir(tmp_path)
+        assert main(["--debug-dump"] + small, device="cpu") == 0
+        for name in ("depth.bmp", "map.bmp", "connections0.bmp", "connections1.bmp"):
+            assert (tmp_path / name).read_bytes()[:2] == b"BM"
+        return
+    if flag in ("png", "ring", "semantic", "checkpoint"):
+        lines = capsys.readouterr().out.strip().splitlines()
+        metrics = json.loads(next(x for x in lines if x.startswith("{")))
+        assert metrics["n_frames"] == 2 and metrics["restarts"] == 0
+
+
+def test_semantic_ring_app_with_every_new_flag(tmp_path, monkeypatch, flat_weights):
+    """``--mode semantic --source ring --checkpoint --debug-dump
+    --auth-token`` together, with a client that authenticates, asks for the
+    path and the stats while the app serves."""
+    np.savez(tmp_path / "ckpt.npz", **flat_weights)
+    monkeypatch.chdir(tmp_path)
+
+    def ask(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.sendall(b"AuthTok" + (6).to_bytes(4, "big") + b"secret" + b"GetPath")
+            data = b""
+            while len(data) < 10:
+                data += s.recv(65536)
+            assert data[:2] == b"OK"
+            return read_stat(s)
+
+    stat = run_with_client(RING + ["--mode", "semantic", "--checkpoint",
+                                   str(tmp_path / "ckpt.npz"), "--debug-dump",
+                                   "--auth-token", "secret"], ask)
+    assert stat["requests"]["AuthTok"] == 1 and stat["requests"]["GetPath"] == 1
+    assert (tmp_path / "map.bmp").exists() and (tmp_path / "connections1.bmp").exists()
 
 
 def test_parser_matches_the_jax_app():

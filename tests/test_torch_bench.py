@@ -36,7 +36,7 @@ METRICS = {
     17: "fps_latency_bounded_640x480",
 }
 # the ROADMAP.md item each unported config waits for
-ITEMS = {1: "PNGSource", 9: "M16", 10: "M12", 11: "M14", 12: "M14", 13: "M12", 15: "M13",
+ITEMS = {1: "data/frc_balls.png", 9: "M16", 10: "M12", 11: "M14", 12: "M14", 13: "M12", 15: "M13",
          16: "M11", 18: "M16", 19: "M10"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
@@ -436,5 +436,6 @@ class TestProfile:
         from tod_tpu_torch.bench.profiling import our_kernels
 
         assert set(our_kernels()) == {
-            "bump_kernel", "bump_memo_kernel", "connections_kernel", "mask_assembly_kernel",
+            "bump_kernel", "bump_memo_kernel", "cc_flatten_kernel", "cc_init_kernel",
+            "cc_merge_kernel", "connections_kernel", "mask_assembly_kernel",
             "path_walk_kernel", "quantize_colmax_kernel", "quantize_kernel", "relax_kernel"}

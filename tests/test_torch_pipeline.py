@@ -421,23 +421,37 @@ f = synth_frame_numpy(0, 0, 120, 160)
 plan = eng.serve_step_plan(torch.from_numpy(pack_frame(f.rgb, f.depth)))
 rc = tod_tpu_torch.app.main(["--frames", "2", "--width", "64", "--height", "48",
                              "--no-server"], device="cpu")
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tod_tpu")
+sem = Engine(cfg, load_pinned(), device="cpu", mode="semantic")
+sem_plan = sem.serve_step_plan(torch.from_numpy(pack_frame(f.rgb, f.depth)))
+_, dets = sem.process(f)
+import os, tempfile
+from tod_tpu_torch.utils.image_io import save_rgb
+png = os.path.join(tempfile.mkdtemp(), "scene.png")
+save_rgb(png, synth_frame_numpy(0, 5, 224, 224).rgb)
+rc_png = tod_tpu_torch.app.main(["--source", "png", "--image", png, "--mode", "semantic",
+                                 "--frames", "2", "--width", "64", "--height", "48",
+                                 "--no-server"], device="cpu")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tod_tpu", "PIL")
                 and sys.modules[m] is not None)
 bench = sorted(m for m in mods if m.startswith("tod_tpu_torch.bench"))
-print(len(mods), int(plan[0, 0]), rc, ",".join(bench), loaded)
+print(len(mods), int(plan[0, 0]), int(sem_plan[0, 0]), int(dets.id_map.max()), rc, rc_png,
+      ",".join(bench), loaded)
 """
 
 
 def test_port_runs_without_jax():
     """The card's machine has no jax, flax, msgpack, orbax or PIL: import
     every port module (the bench's among them) with those blocked, load the
-    pinned weights, serve one frame and run the app for two frames."""
+    pinned weights, serve one frame in each mode (the semantic one with its
+    balls) and run the app for two frames, then in semantic mode on a PNG
+    that the port's own writer made."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    n_mods, n_valid, rc, bench, loaded = out.stdout.split(maxsplit=4)
-    assert int(n_mods) >= 51 and int(n_valid) > 5
+    n_mods, n_valid, n_sem, max_id, rc, rc_png, bench, loaded = out.stdout.split(maxsplit=7)
+    assert int(n_mods) >= 58 and int(n_valid) > 5 and int(n_sem) > 5 and int(max_id) >= 0
+    assert int(rc_png) == 0
     assert bench.split(",") == [f"tod_tpu_torch.bench{m}" for m in (
         "", ".__main__", ".boot", ".configs", ".headline", ".mfu", ".profiling")]
     assert int(rc) == 0

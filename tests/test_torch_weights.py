@@ -2,7 +2,9 @@
 carry-across (BatchNorm fold + layout) against ``fold_batchnorm``.
 
 Run ``python tests/test_torch_weights.py --write`` to rewrite
-``tod_tpu_torch/weights/yolact_dr.npz`` from ``checkpoints/yolact_dr``.
+``tod_tpu_torch/weights/yolact_dr.npz`` from ``checkpoints/yolact_dr``, and
+``python tests/test_torch_weights.py --write CKPT_DIR OUT.npz`` to convert
+another checkpoint of the JAX package for the port's ``--checkpoint``.
 """
 
 from __future__ import annotations
@@ -17,26 +19,30 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_LEAVES = 291  # batch_stats + params of the pinned yolact_mnv2_fpn tree
 
 
-def flat_checkpoint_tree() -> dict[str, np.ndarray]:
-    """``checkpoints/yolact_dr`` through the JAX package's loader, flattened
-    to ``params/...`` / ``batch_stats/...`` keys."""
+def flat_checkpoint_tree(path=ROOT / "checkpoints" / "yolact_dr") -> dict[str, np.ndarray]:
+    """A checkpoint (``checkpoints/yolact_dr`` by default) through the JAX
+    package's loader, flattened to ``params/...`` / ``batch_stats/...``
+    keys."""
     import jax
 
     from tod_tpu.train.checkpoint import load_checkpoint
 
-    tree = load_checkpoint(ROOT / "checkpoints" / "yolact_dr")
+    tree = load_checkpoint(path)
     return {
         "/".join(str(k.key) for k in path): np.asarray(leaf)
         for path, leaf in jax.tree_util.tree_leaves_with_path(tree)
     }
 
 
-def write_npz() -> pathlib.Path:
+def write_npz(ckpt=ROOT / "checkpoints" / "yolact_dr", out=None) -> pathlib.Path:
+    """Write the flat tree of ``ckpt`` to ``out`` (the pinned npz by
+    default)."""
     from tod_tpu_torch.core.weights import PINNED
 
-    PINNED.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(PINNED, **flat_checkpoint_tree())
-    return PINNED
+    out = pathlib.Path(out or PINNED)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **flat_checkpoint_tree(ckpt))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +160,8 @@ class TestCarryAcrossRaises:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
-        sys.exit("usage: python tests/test_torch_weights.py --write")
+    args = sys.argv[1:]
+    if not args or args[0] != "--write" or len(args) not in (1, 3):
+        sys.exit("usage: python tests/test_torch_weights.py --write [CKPT_DIR OUT.npz]")
     sys.path.insert(0, str(ROOT))
-    print("wrote", write_npz())
+    print("wrote", write_npz(*args[1:]))

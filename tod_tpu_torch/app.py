@@ -5,12 +5,18 @@ Run as::
 
     python -m tod_tpu_torch.app --source synthetic --frames 300 --port 8080
     python -m tod_tpu_torch.app --source trace --trace capture.todtrace
+    python -m tod_tpu_torch.app --source ring --mode semantic --auth-token T
+    python -m tod_tpu_torch.app --source png --image scene.png --debug-dump
 
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
-``--max-inflight 2``).  It serves the pinned weights through
-``Engine.run_supervised``, with the path server's ``GetStat`` reporting the
-engine's fps, stage timers and restarts.  ``--planner`` picks the mode as
+``--max-inflight 2``).  It serves the pinned weights (or ``--checkpoint``,
+an npz converted on the JAX side) through ``Engine.run_supervised`` in
+``--mode detect`` or ``semantic``, from the synthetic scene, a PNG, a trace
+or the native ring, with the path server's ``GetStat`` reporting the
+engine's fps, stage timers and restarts; ``--auth-token`` and ``--tls-*``
+harden the server, and ``--debug-dump`` writes the reference's BMP dumps of
+one synthetic frame into the working directory after the run.  ``--planner`` picks the mode as
 the JAX package does: ``tpu``, and ``auto`` on the card, plan on the device
 (the relaxation and walk kernels); ``numpy`` and ``native``, and ``auto`` on
 the CPU, read the f16 height and the balls back and plan on the host, with
@@ -75,20 +81,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Exit with the ``ROADMAP.md`` item of the first flag the port lacks."""
     refused = (
-        (args.source == "png", "--source png", "B: PNGSource"),
-        (args.source == "ring", "--source ring", "B: RingSource (the native ring)"),
-        (args.mode == "semantic", "--mode semantic", "B, M9: semantic mode"),
-        (args.checkpoint is not None, "--checkpoint", "B: the remaining app flags"),
         (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
         (args.int8, "--int8", "B, M12: int8 inference"),
         (args.track, "--track", "B, M10: tracking"),
         (args.obstacle_memory != 0.0, "--obstacle-memory", "B, M10: obstacle memory"),
         (args.streams != 1, "--streams", "B, M11: multistream"),
         (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
-        (any(v is not None for v in (args.auth_token, args.tls_cert, args.tls_key,
-                                     args.tls_client_ca)),
-         "--auth-token/--tls-*", "B: the remaining app flags (auth and TLS)"),
-        (args.debug_dump, "--debug-dump", "B: the remaining app flags"),
     )
     for hit, flag, item in refused:
         if hit:
@@ -108,44 +106,51 @@ def main(argv=None, device=None) -> int:
         PlannerConfig,
         ServerConfig,
     )
-    from tod_tpu_torch.core.weights import load_pinned
+    from tod_tpu_torch.core.weights import load_checkpoint, load_pinned
     from tod_tpu_torch.planner.api import host_backend
     from tod_tpu_torch.runtime.engine import Engine
-    from tod_tpu_torch.runtime.frame_source import SyntheticSource, TraceSource
+    from tod_tpu_torch.runtime.frame_source import (
+        PNGSource,
+        RingSource,
+        SyntheticSource,
+        TraceSource,
+    )
     from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
 
-    if args.source == "trace" and not args.trace:
-        raise SystemExit("--source trace requires --trace")
     cam = CameraConfig(width=args.width, height=args.height, fps=args.fps)
     cfg = PipelineConfig(
         camera=cam,
         model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8)),
         planner=PlannerConfig(backend=args.planner, signed_turns=args.signed_turns,
                               start_offset=args.start_offset),
-        server=ServerConfig(host=args.host, port=args.port),
+        server=ServerConfig(host=args.host, port=args.port, auth_token=args.auth_token,
+                            tls_cert=args.tls_cert, tls_key=args.tls_key,
+                            tls_client_ca=args.tls_client_ca),
     )
+
+    if args.checkpoint is None:
+        params = load_pinned(cfg=cfg.model)
+    else:
+        logging.info("loading checkpoint %s", args.checkpoint)
+        try:
+            params = load_checkpoint(args.checkpoint, cfg.model)
+        except (ValueError, KeyError, FileNotFoundError) as e:
+            raise SystemExit(f"--checkpoint {args.checkpoint}: {e}") from e
 
     def make_source():
         """A fresh source per (re)start: recovery re-opens the camera."""
+        if args.source == "synthetic":
+            return SyntheticSource(cam, n_frames=args.frames)
+        if args.source == "png":
+            if not args.image:
+                raise SystemExit("--source png requires --image")
+            return PNGSource(args.image, cam, n_frames=args.frames)
         if args.source == "trace":
+            if not args.trace:
+                raise SystemExit("--source trace requires --trace")
             return TraceSource(args.trace, loop=True, n_frames=args.frames)
-        return SyntheticSource(cam, n_frames=args.frames)
+        return RingSource(cam, fps=args.fps, trace_path=args.trace, n_frames=args.frames)
 
-    engine = Engine(cfg, load_pinned(cfg=cfg.model), device=device)
-    if engine._plan_on_device_mode:
-        logging.info("planner %s: the device planner on %s", args.planner, engine.device)
-    else:
-        logging.info("planner %s: the %s host planner", args.planner, host_backend(args.planner))
-    store = PathStore()
-    server_thread = server = None
-    if not args.no_server:
-        stats_fn = lambda: {  # noqa: E731 (GetStat's live metrics)
-            "fps": engine.fps.fps,
-            "stages": engine.timer.summary(),
-            "restarts": engine.restarts,
-        }
-        server_thread, server = run_in_thread(store, cfg.server, stats_fn=stats_fn)
-        logging.info("path server on %s:%s", cfg.server.host, server.port)
     sources = [make_source()]
     last_source = list(sources)
 
@@ -155,7 +160,23 @@ def main(argv=None, device=None) -> int:
         last_source[0] = s
         return s
 
+    store = PathStore()
+    server_thread = server = None
     try:
+        engine = Engine(cfg, params, device=device, mode=args.mode)
+        if engine._plan_on_device_mode:
+            logging.info("planner %s: the device planner on %s", args.planner, engine.device)
+        else:
+            logging.info("planner %s: the %s host planner", args.planner,
+                         host_backend(args.planner))
+        if not args.no_server:
+            stats_fn = lambda: {  # noqa: E731 (GetStat's live metrics)
+                "fps": engine.fps.fps,
+                "stages": engine.timer.summary(),
+                "restarts": engine.restarts,
+            }
+            server_thread, server = run_in_thread(store, cfg.server, stats_fn=stats_fn)
+            logging.info("path server on %s:%s", cfg.server.host, server.port)
         metrics = engine.run_supervised(
             next_source, n_frames=args.frames, path_store=store,
             max_restarts=3, stall_timeout_s=10.0,
@@ -167,6 +188,13 @@ def main(argv=None, device=None) -> int:
         if server is not None:
             stop_thread_server(server)
             server_thread.join(timeout=5)
+
+    if args.debug_dump:
+        from tod_tpu_torch.utils.image_io import dump_scene_debug
+
+        frame = next(SyntheticSource(cam, n_frames=1).frames())
+        scene, _ = engine.process(frame)
+        logging.info("debug dumps: %s", dump_scene_debug(scene, depth=frame.depth))
 
     if args.metrics_json:
         print(json.dumps(metrics, default=float))

@@ -547,7 +547,7 @@ def config17_latency_bounded_vga(device=None, n_frames: int | None = None) -> di
 # config -> (what it measures, the ROADMAP.md item it waits for)
 UNPORTED = {
     1: ("single frame on the reference fixture data/frc_balls.png",
-        "B: PNGSource (and the reference fixture)"),
+        "B: the reference fixture data/frc_balls.png"),
     9: ("data-parallel batch serving over a mesh", "B, M16: multi-GPU"),
     10: ("static-int8 against bf16 serve step", "B, M12: int8 inference"),
     11: ("train-step throughput and MFU", "B, M14: training"),

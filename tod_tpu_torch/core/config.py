@@ -34,6 +34,7 @@ class ModelConfig:
     backbone: str = "mobilenetv2"
     input_size: tuple[int, int] = (256, 320)  # (H, W)
     num_classes: int = 81  # semantic head width
+    meaningful_classes: int = 4  # 0 bg, 1 red robot, 2 blue robot, 3 ball
     det_num_classes: int = 4  # 0 bg, 1 red robot, 2 blue robot, 3 ball
     fpn_channels: int = 128
     fpn_levels: int = 5  # P3..P7
@@ -107,10 +108,23 @@ class PlannerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
-    """TCP control plane (plaintext NewPath/GetPath on loopback)."""
+    """TCP control plane.  The defaults are plaintext, unauthenticated and
+    loopback-only; the rest is opt-in hardening:
+
+    - ``auth_token``: a connection must authenticate before any command:
+      7-byte ``b"AuthTok"`` + u32 big-endian length + token bytes -> ``OK``.
+      Unauthenticated or wrong-token connections are dropped and counted.
+    - ``tls_cert``/``tls_key``: serve the same protocol over TLS.
+    - ``tls_client_ca``: also require and verify client certificates
+      (mutual TLS) against this CA bundle.
+    """
 
     host: str = "127.0.0.1"
     port: int = 8080
+    auth_token: str | None = None
+    tls_cert: str | None = None
+    tls_key: str | None = None
+    tls_client_ca: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +149,8 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append(f"model.input_size {cfg.model.input_size} not divisible by 8")
     if cfg.model.fpn_levels != len(cfg.model.anchor_scales):
         problems.append("anchor_scales must have one entry per FPN level")
+    if cfg.model.meaningful_classes > cfg.model.num_classes:
+        problems.append("meaningful_classes exceeds num_classes")
     if cfg.model.backbone != "mobilenetv2":
         problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
     if cfg.planner.backend not in PLANNER_BACKENDS:

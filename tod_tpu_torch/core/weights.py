@@ -12,7 +12,9 @@ filled with the right shape, or the carry-across raises.
 
 ``load_pinned`` reads ``tod_tpu_torch/weights/yolact_dr.npz``: the same tree,
 written once from the JAX checkpoint and committed, so that the port needs
-neither orbax nor msgpack.
+neither orbax nor msgpack.  ``load_checkpoint`` reads any other checkpoint
+converted to that layout on the JAX side by
+``python tests/test_torch_weights.py --write CKPT_DIR OUT.npz``.
 """
 
 from __future__ import annotations
@@ -95,6 +97,21 @@ def read_tree(path: str | pathlib.Path = PINNED) -> dict[str, np.ndarray]:
         raise FileNotFoundError(f"weight file {path} not found")
     with np.load(path, allow_pickle=False) as npz:
         return {k: npz[k] for k in npz.files}
+
+
+CONVERTER = "python tests/test_torch_weights.py --write CKPT_DIR OUT.npz"
+
+
+def load_checkpoint(path: str | pathlib.Path, cfg=None) -> dict[str, torch.Tensor]:
+    """A checkpoint ``.npz`` in the pinned file's layout as the port's state
+    dict (CPU, f32), checked against the model of ``cfg`` (a ModelConfig,
+    the default one when None).  An orbax checkpoint directory raises with
+    the command that converts it."""
+    path = pathlib.Path(path)
+    if path.is_dir():
+        raise ValueError(f"{path} is a checkpoint directory (orbax), which the port cannot "
+                         f"read: convert it to an npz on the JAX side with `{CONVERTER}`")
+    return load_pinned(path, cfg)
 
 
 def load_pinned(path: str | pathlib.Path = PINNED, cfg=None) -> dict[str, torch.Tensor]:

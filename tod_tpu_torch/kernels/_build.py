@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,3 +1,4 @@
-"""The host planner's native library (``csrc/planner.cpp``), built with g++
-at first use and loaded with ctypes (counterpart of the JAX package's
-``native``)."""
+"""The port's host C++ (counterpart of the JAX package's ``native``), built
+with g++ at first use and loaded with ctypes: the host planner
+(``csrc/planner.cpp``, ``loader.py``) and the frame ring
+(``csrc/framesource.cpp``, ``ring.py``)."""

@@ -58,6 +58,19 @@ def preprocess_frame(rgb: torch.Tensor, out_hw: tuple[int, int],
     return normalize(resize_triangle(rgb, out_hw), dtype)[None]
 
 
+def tile_448x224(rgb: torch.Tensor) -> torch.Tensor:
+    """The reference's tile path: (H, W, 3) frame -> (2, 224, 224, 3) f32,
+    a triangle resize to 224x448, cut into its left and right halves (one
+    batch, so both tiles run in one forward)."""
+    small = resize_triangle(rgb, (224, 448))
+    return torch.stack([small[:, :224], small[:, 224:]], dim=0)
+
+
+def stitch_tiles(tiles: torch.Tensor) -> torch.Tensor:
+    """(2, h, w, ...) -> (h, 2w, ...), the inverse of the tile split."""
+    return torch.cat([tiles[0], tiles[1]], dim=1)
+
+
 def upscale_to_frame(img: torch.Tensor, frame_hw: tuple[int, int]) -> torch.Tensor:
     """Nearest-neighbour upscale of a (h, w) class/id map to frame size."""
     h, w = img.shape[:2]

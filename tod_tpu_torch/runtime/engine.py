@@ -6,8 +6,11 @@ streaming loop around it (counterpart of the JAX package's
 ``Engine._serve_step_plan``: one packed uint8 frame (H*W*3 RGB bytes, then
 the depth as little-endian u16) in, one ``(max_path_steps + 1, 2)`` f32 plan
 buffer out.  It runs eagerly on the engine's device: preprocess, the YOLACT
-forward in ``ModelConfig.dtype``, detection cleanup (kernel K1), the
-occupancy map (the terrain dilation kernel: K3's strips with
+forward in ``ModelConfig.dtype``, then the class and ball-id maps by the
+engine's ``mode``: ``detect``, detection cleanup (kernel K1); ``semantic``,
+the reference's own path, the argmax of the semantic logits upsampled to
+the frame and the connected components of its ball class (the cc kernel).
+Then the occupancy map (the terrain dilation kernel: K3's strips with
 ``GeometryConfig.pallas_bump``, K4's whole map otherwise) and ball
 centroids, then the planner (kernel K2 for its edges, the relaxation
 kernel, the path walk kernel).
@@ -51,12 +54,22 @@ from tod_tpu_torch.core.weights import check_state, load_pinned
 from tod_tpu_torch.geometry.fusion import ball_centroids, fuse_scene, occupancy_map
 from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
+from tod_tpu_torch.ops.cc_labels import connected_components
 from tod_tpu_torch.ops.packing import unpack_height_balls
-from tod_tpu_torch.ops.preprocess import pack_frame, preprocess_frame, unpack_frame
+from tod_tpu_torch.ops.postprocess import semantic_argmax, upsample_nearest
+from tod_tpu_torch.ops.preprocess import (
+    pack_frame,
+    preprocess_frame,
+    unpack_frame,
+    upscale_to_frame,
+)
 from tod_tpu_torch.planner.api import host_backend, materialize_path, plan_from_height
 from tod_tpu_torch.planner.dijkstra import start_node_yx
 from tod_tpu_torch.planner.relax import plan_on_device
 from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
+
+
+MODES = ("detect", "semantic")
 
 
 class Engine:
@@ -64,15 +77,25 @@ class Engine:
 
     ``params`` is the port's state dict (``core.weights.load_pinned`` when
     None: the engine never starts from random weights).  ``device`` defaults
-    to ``cuda``; the tests pass ``"cpu"``.
+    to ``cuda``; the tests pass ``"cpu"``.  ``mode``:
+
+    - ``"detect"``: the full YOLACT path, boxes, instance masks and the
+      class and id maps from them;
+    - ``"semantic"``: the reference's shipped path, the semantic head's
+      argmax and the connected components of its ball class; the
+      ``Detections`` it returns hold no boxes.
     """
 
     def __init__(self, cfg: PipelineConfig | None = None,
-                 params: Mapping[str, torch.Tensor] | None = None, device=None):
+                 params: Mapping[str, torch.Tensor] | None = None, device=None,
+                 mode: str = "detect"):
         self.cfg = cfg or PipelineConfig()
         problems = validate(self.cfg)
         if problems:
             raise ValueError("invalid PipelineConfig: " + "; ".join(problems))
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        self.mode = mode
         self.device = resolve_device(device)
         mcfg = self.cfg.model
         self.dtype = getattr(torch, mcfg.dtype)
@@ -112,6 +135,13 @@ class Engine:
             x = preprocess_frame(rgb, self.cfg.model.input_size, self.dtype)
         with record_function("stage/forward"):
             out = self.model(x)
+        if self.mode == "semantic":
+            with record_function("stage/semantic"):
+                mcfg = self.cfg.model
+                cls_small = semantic_argmax(out.sem_logits[0], mcfg.meaningful_classes)
+                cls_map = upscale_to_frame(upsample_nearest(cls_small, 8), self.cam_hw)
+                ids = connected_components(cls_map == 3, max_labels=self.cfg.geometry.max_balls)
+                return depth, _empty_detections(mcfg, self.cam_hw, cls_map, ids)
         with record_function("stage/detect"):
             dets = detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
         return depth, dets
@@ -369,6 +399,20 @@ class Engine:
         total["fps"] = total["n_frames"] / total["wall_s"] if total["wall_s"] > 0 else 0.0
         total["restarts"] = self.restarts
         return total
+
+
+def _empty_detections(mcfg, cam_hw, cls_map: torch.Tensor, ids: torch.Tensor) -> Detections:
+    """Semantic mode's ``Detections``: no boxes, the class and id maps."""
+    n, dev = mcfg.max_detections, cls_map.device
+    return Detections(
+        boxes=torch.zeros((n, 4), device=dev),
+        scores=torch.zeros((n,), device=dev),
+        classes=torch.zeros((n,), dtype=torch.int32, device=dev),
+        masks=torch.zeros((n, cam_hw[0] // 4, cam_hw[1] // 4), device=dev),
+        valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+        class_map=cls_map,
+        id_map=ids,
+    )
 
 
 def _call_quietly(fn) -> None:

@@ -9,12 +9,18 @@
                        so a trace written by either package replays in the
                        other
 - ``PacedSource``      wraps any source to emit at a fixed FPS
+- ``PNGSource``        one image resized to the camera (Pillow's default
+                       bicubic, byte for byte) with a synthetic depth ramp,
+                       repeated; the PNG is read without PIL
+- ``RingSource``       a native producer thread pushing frames at the camera's
+                       rate into a drop-oldest ring (``native/ring.py``)
 """
 
 from __future__ import annotations
 
 import pathlib
 import struct
+import threading
 import time
 from typing import Iterator, Optional
 
@@ -22,6 +28,8 @@ import numpy as np
 
 from tod_tpu_torch.core.config import CameraConfig
 from tod_tpu_torch.core.types import Frame
+from tod_tpu_torch.utils.image_io import load_image
+from tod_tpu_torch.utils.resample import resize_bicubic
 
 
 def synth_frame_numpy(seed: int, t: int, h: int, w: int) -> Frame:
@@ -163,3 +171,83 @@ class TraceSource:
 
     def close(self) -> None:
         pass
+
+
+class PNGSource:
+    """A fixed image resized to the camera's resolution, paired with a depth
+    ramp from 3500 mm at the top row to 600 mm at the bottom."""
+
+    def __init__(self, path: str | pathlib.Path, cam: CameraConfig | None = None,
+                 n_frames: Optional[int] = None):
+        self.cam = cam or CameraConfig()
+        self.n_frames = n_frames
+        self.rgb = resize_bicubic(load_image(path), (self.cam.width, self.cam.height))
+        ramp = np.linspace(3500, 600, self.cam.height).astype(np.uint16)
+        self.depth = np.broadcast_to(ramp[:, None], (self.cam.height, self.cam.width)).copy()
+
+    def frames(self) -> Iterator[Frame]:
+        t = 0
+        while self.n_frames is None or t < self.n_frames:
+            yield Frame(rgb=self.rgb, depth=self.depth)
+            t += 1
+
+    def close(self) -> None:
+        pass
+
+
+class RingSource:
+    """Frames from a native producer thread at ``fps`` (the camera's by
+    default), the synthetic scene or a trace replayed in a loop, through a
+    ring of ``capacity`` frames that drops the oldest when full.  ``frames``
+    ends when no frame arrives within 2 s."""
+
+    def __init__(self, cam: CameraConfig | None = None, capacity: int = 4,
+                 fps: float | None = None, seed: int = 0, trace_path: str | None = None,
+                 n_frames: Optional[int] = None):
+        from tod_tpu_torch.native import ring
+
+        self.cam = cam or CameraConfig()
+        self.n_frames = n_frames
+        self._lib = ring.get()
+        self._lock = threading.Lock()
+        self._ring = self._lib.tod_ring_create(capacity, self.cam.height, self.cam.width)
+        rc = self._lib.tod_ring_start_producer(
+            self._ring, float(fps if fps is not None else self.cam.fps), seed,
+            trace_path.encode() if trace_path else None,
+        )
+        if rc != 0:
+            self.close()
+            raise RuntimeError("ring producer failed to start")
+
+    def frames(self) -> Iterator[Frame]:
+        h, w = self.cam.height, self.cam.width
+        t = 0
+        while self.n_frames is None or t < self.n_frames:
+            rgb = np.empty((h, w, 3), np.uint8)
+            depth = np.empty((h, w), np.uint16)
+            with self._lock:  # close() waits for a pending pop
+                if not self._ring or not self._lib.tod_ring_pop(
+                        self._ring, rgb.reshape(-1), depth.reshape(-1), 2000):
+                    return
+            yield Frame(rgb=rgb, depth=depth)
+            t += 1
+
+    @property
+    def stats(self) -> dict:
+        with self._lock:
+            if not self._ring:
+                raise RuntimeError("the ring source is closed")
+            return {
+                "pushed": int(self._lib.tod_ring_stat_pushed(self._ring)),
+                "dropped": int(self._lib.tod_ring_stat_dropped(self._ring)),
+            }
+
+    def close(self) -> None:
+        # idempotent and thread-safe: the supervised runtime may close a
+        # source on a helper thread while the app closes it again; the
+        # handle is claimed under the lock (after any pending pop, at most
+        # 2 s) and destroyed once
+        with self._lock:
+            ring, self._ring = self._ring, None
+        if ring:
+            self._lib.tod_ring_destroy(ring)

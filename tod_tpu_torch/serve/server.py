@@ -11,7 +11,17 @@ Wire protocol:
 - ``GetStat`` -> length-prefixed JSON of counters, path staleness and, when
   the server was given a ``stats_fn``, the engine's live metrics under
   ``pipeline`` (fps, stage timers, restarts)
+- ``AuthTok`` + u32 big-endian length (at most 1024) + token -> ``b"OK"``.
+  With ``ServerConfig.auth_token`` set it must precede every other command,
+  and a wrong token drops the connection; with auth off it is a no-op, so a
+  client configured with a token works against a server without one
+- ``GetPthN`` / ``NewPthN`` + u32 big-endian stream index -> the multistream
+  commands; this server has no per-stream stores yet, so each is counted as
+  an error and the connection dropped
 - anything else -> logged, connection dropped
+
+With ``ServerConfig.tls_cert`` the server speaks TLS, and with
+``tls_client_ca`` it requires a client certificate signed by that CA.
 
 Connections are served concurrently; commands may be pipelined.
 """
@@ -19,6 +29,7 @@ Connections are served concurrently; commands may be pipelined.
 from __future__ import annotations
 
 import asyncio
+import hmac
 import json
 import logging
 import threading
@@ -62,7 +73,9 @@ class PathServer:
         self.stats_fn = stats_fn
         self._started = time.time()
         self.counters = {
-            "NewPath": 0, "GetPath": 0, "GetPth2": 0, "GetStat": 0, "errors": 0,
+            "NewPath": 0, "GetPath": 0, "GetPth2": 0, "GetStat": 0,
+            "GetPthN": 0, "NewPthN": 0,
+            "AuthTok": 0, "unauthorized": 0, "errors": 0,
         }
         self._server: asyncio.AbstractServer | None = None
         self._writers: set[asyncio.StreamWriter] = set()
@@ -74,13 +87,46 @@ class PathServer:
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         peer = writer.get_extra_info("peername")
         self._writers.add(writer)
+        authed = self.cfg.auth_token is None  # auth off: every connection trusted
         try:
             while True:
                 try:
                     buf = await reader.readexactly(7)
                 except asyncio.IncompleteReadError:
                     return
-                if buf == b"NewPath":
+                if buf == b"AuthTok":
+                    self.counters["AuthTok"] += 1
+                    try:
+                        n = int.from_bytes(await reader.readexactly(4), "big")
+                        if n > 1024:
+                            self.counters["unauthorized"] += 1
+                            log.error("AuthTok length %d exceeds bound; dropping %s", n, peer)
+                            return
+                        token = await reader.readexactly(n)
+                    except asyncio.IncompleteReadError:
+                        return  # the client vanished mid-handshake: drop quietly
+                    if self.cfg.auth_token is None:
+                        await self._reply(writer, b"OK")
+                    elif hmac.compare_digest(token, self.cfg.auth_token.encode()):
+                        authed = True
+                        await self._reply(writer, b"OK")
+                    else:
+                        self.counters["unauthorized"] += 1
+                        log.error("bad auth token from %s; dropping", peer)
+                        return
+                elif not authed:
+                    self.counters["unauthorized"] += 1
+                    log.error("unauthenticated %r from %s; dropping", buf, peer)
+                    return
+                elif buf in (b"GetPthN", b"NewPthN"):
+                    try:
+                        idx = int.from_bytes(await reader.readexactly(4), "big")
+                    except asyncio.IncompleteReadError:
+                        return
+                    self.counters["errors"] += 1
+                    log.error("RequestError(%s stream %d of none)", buf.decode(), idx)
+                    return
+                elif buf == b"NewPath":
                     self.counters["NewPath"] += 1
                     self.store.reset()
                     await self._reply(writer, b"OK")
@@ -125,8 +171,23 @@ class PathServer:
                 out["pipeline_error"] = repr(e)
         return out
 
+    def _ssl_context(self):
+        """Server-side SSLContext from the config, or None (plaintext)."""
+        if not self.cfg.tls_cert:
+            return None
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.cfg.tls_cert, self.cfg.tls_key)
+        if self.cfg.tls_client_ca:
+            ctx.verify_mode = ssl.CERT_REQUIRED  # mutual TLS
+            ctx.load_verify_locations(self.cfg.tls_client_ca)
+        return ctx
+
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._handle, self.cfg.host, self.cfg.port)
+        self._server = await asyncio.start_server(
+            self._handle, self.cfg.host, self.cfg.port, ssl=self._ssl_context()
+        )
 
     @property
     def port(self) -> int:
