@@ -10,12 +10,14 @@ Phases, each printed as it ends:
    process per source, all at once, and of the native host planner with g++;
 3. each kernel (mask assembly, connection weights, the relaxation, the path
    walk, the terrain dilation K3/K4, the stochastic quantizer K5, the
-   connected-components labels) against its plain torch version on the
-   card, at the main path's shapes and ragged ones (the cc kernel bit for
-   bit at 64x64 and below, and at 480x640 and 479x641 against
-   ``scipy.ndimage.label``), and its device time (CUDA events, median of 50 calls after a
-   warm-up, enqueued behind a sleep kernel) beside the plain version's and a
-   library call's;
+   connected-components labels, the tracker) against its plain torch version
+   on the card, at the main path's shapes and ragged ones (the cc kernel bit
+   for bit at 64x64 and below, and at 480x640 and 479x641 against
+   ``scipy.ndimage.label``; the tracker bit for bit on random banks at
+   N = 1, 4 and 16 and over a 64-step sequence of 4 banks with births,
+   deaths, coasting and contended gates), and its device time (CUDA
+   events, median of 50 calls after a warm-up, enqueued behind a sleep
+   kernel) beside the plain version's and a library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
    configuration; one frame through ``Engine.serve_step_plan`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
@@ -50,8 +52,8 @@ Phases, each printed as it ends:
 12. the bench (``tod_tpu_torch.bench``): ``fuse_scene_batch`` at batch 8
    on the card exactly equal to ``fuse_scene`` frame by frame (K4 and K2
    once a map) and at batch 2 to the CPU; then, with the serve path's
-   launch counts reset before and read after, configs 2, 3, 4, 7 and 14 and
-   the headline (with one cold and one warm boot child) in this process at
+   launch counts reset before and read after, configs 2, 3, 4, 7, 14, 16
+   and 19 and the headline (with one cold and one warm boot child) in this process at
    reduced counts, each line held: a positive value and fps, 0 < mfu <= 1,
    0 <= idle_share <= 1, the card's name, a cold boot slower than the warm;
 13. semantic mode (``Engine(mode="semantic")``) at the app's configuration:
@@ -64,7 +66,24 @@ Phases, each printed as it ends:
 14. ``python3 -m tod_tpu_torch.app --mode semantic --source ring
    --auth-token`` with a client that authenticates and sends ``GetPath``
    and ``GetStat``, then ``--source png --checkpoint --debug-dump`` in a
-   temporary directory, whose BMPs must exist.
+   temporary directory, whose BMPs must exist;
+15. tracked serving at the app's configuration with the obstacle memory
+   (0.8): one ``serve_step_track_plan`` and one ``serve_step_track_plan_mem``
+   frame under the sync check, 8 tracked frames with the path's launch
+   counts (every kernel of the path, the tracker's among them, once a
+   frame), the bank on the card against the CPU's plain ``track_update``
+   fed the card's own ball slots, and ``run_supervised`` with the tracker
+   (a plan and a tracker launch every 4th frame);
+16. ``MultiStreamEngine`` with 4 streams at 320x240: a tick and a tracked
+   tick under the sync check, a tracked tick's launches (K1 and the tracker
+   once, K4, K2, the relaxation and the walk once a stream), and in f32 each
+   stream's class and id maps, scene and plan exactly against a
+   single-stream ``Engine`` on the same frame, and 4 tracked ticks' plans
+   and banks exactly against ``Engine.serve_step_track_plan`` stream by
+   stream from the same starting banks; then the app
+   as a subprocess with ``--track --obstacle-memory 0.8 --plan-every 4``
+   (``GetPath``, ``GetStat``) and with ``--streams 2 --track`` (``GetPthN 0``
+   and ``1``, ``NewPthN 1``, ``GetStat`` with its 2 streams).
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -773,6 +792,144 @@ def check_cc(torch, np, rng, device):
     }
 
 
+TRACK_STEPS = 64
+TRACKED_TICKS = 4  # phase 16: tracked ticks held against the single-stream tracked step
+
+
+def random_banks(np, gen, n, k=8, m=100):
+    """Random banks and ball slots: every field of a row in its range, a
+    third of the rows inactive, balls scattered round the tracks so that
+    gates are contended, counts on both sides of min_pixels (3.0)."""
+    banks = np.zeros((n, k, 10), np.float32)
+    banks[..., 0:2] = gen.uniform(0, 160, (n, k, 2))
+    banks[..., 2:4] = gen.normal(0, 2, (n, k, 2))
+    banks[..., 4] = gen.uniform(0.5, 30, (n, k))
+    banks[..., 5] = gen.uniform(-2, 2, (n, k))
+    banks[..., 6] = gen.uniform(0.5, 30, (n, k))
+    banks[..., 7] = gen.integers(0, 6, (n, k))
+    banks[..., 8] = gen.integers(0, 9, (n, k))
+    banks[..., 9] = gen.random((n, k)) < 0.67
+    balls = np.zeros((n, m, 4), np.float32)
+    near = np.take_along_axis(banks[..., 0:2], gen.integers(0, k, (n, m, 1)), axis=1)
+    balls[..., 0:2] = near + gen.normal(0, 12, (n, m, 2))
+    balls[..., 2] = gen.choice([0.0, 2.0, 3.0, 3.5, 20.0, 40.0], (n, m))
+    balls[..., 2] *= gen.random((n, m)) < 0.3  # most slots empty, as in a scene
+    return banks, balls
+
+
+def track_sequence(np, gen, n, steps, m=100):
+    """``steps`` frames of ball slots for ``n`` banks: 10 balls a bank on
+    straight lines (more than the 8 tracks), each missed a third of the
+    time (coasting), some gone for good after a while (deaths), spurious
+    blobs (births), two balls crossing in every bank (contended gates) and
+    counts at min_pixels exactly (invalid) and just above it."""
+    seq = np.zeros((steps, n, m, 4), np.float32)
+    for b in range(n):
+        pos = gen.uniform(20, 140, (10, 2))
+        vel = gen.normal(0, 1.5, (10, 2))
+        pos[1], vel[1] = pos[0] + (30, 0), vel[0] + (-1.0, 0)  # ball 1 crosses ball 0
+        life = gen.integers(steps // 3, 2 * steps, 10)
+        for s in range(steps):
+            slots = gen.permutation(m)
+            for i in range(10):
+                if s < life[i] and gen.random() > 0.33:
+                    seq[s, b, slots[i], :3] = (*(pos[i] + gen.normal(0, 0.8, 2)),
+                                               gen.choice([3.0, 3.0001, 25.0]))
+            for j in range(gen.integers(0, 3)):  # spurious blobs
+                seq[s, b, slots[10 + j], :3] = (*gen.uniform(0, 160, 2), 12.0)
+            pos += vel
+    return seq
+
+
+def sequence_events(np, banks, seq, cfg) -> dict:
+    """Births, deaths, coasting rows and contended gates (an active track
+    with two valid balls inside its gate) over a sequence of banks and the
+    ball slots that made it."""
+    ev = dict(births=0, deaths=0, coasting=0, contended=0)
+    for old, new, balls in zip(banks[:-1], banks[1:], seq):
+        pred = old[..., 0:2] + old[..., 2:4]
+        d2 = ((pred[:, :, None] - balls[:, None, :, 0:2]) ** 2).sum(-1)
+        inside = (d2 <= cfg.gate**2) & (balls[:, None, :, 2] > cfg.min_pixels)
+        ev["contended"] += int(((old[..., 9] == 1) & (inside.sum(-1) >= 2)).sum())
+        born = (new[..., 9] == 1) & (new[..., 7] == 1) & (new[..., 6] == cfg.vel0_var) \
+            & (new[..., 2] == 0) & (new[..., 3] == 0)
+        ev["births"] += int(born.sum())
+        ev["deaths"] += int(((old[..., 9] == 1) & ((new[..., 9] == 0) | born)).sum())
+        ev["coasting"] += int(((new[..., 9] == 1) & (new[..., 8] > 0)).sum())
+    return ev
+
+
+def check_track(torch, np, rng, device):
+    """The tracker kernel against its plain version on the card: random
+    banks at N = 1, 4 and 16, then a 64-step sequence of 4 banks run side
+    by side; every field of the banks and the seeds bit for bit."""
+    from tod_tpu_torch.core.config import TrackerConfig
+    from tod_tpu_torch.kernels.track import plain_track_banks, track_banks
+
+    cfg = TrackerConfig(enabled=True)
+    gen = np.random.default_rng(12)
+    worst = 0.0
+    for n in (1, 4, 16):
+        for trial in range(4):
+            banks, balls = random_banks(np, gen, n)
+            card = torch.from_numpy(banks).to(device)
+            b = torch.from_numpy(balls).to(device)
+            want, want_seeds = plain_track_banks(card.clone(), b, cfg, 100)
+            seeds = track_banks(card, b, cfg, 100)
+            torch.cuda.synchronize()
+            same = torch.equal(card, want) and torch.equal(seeds, want_seeds)
+            worst = max(worst, (card - want).abs().max().item(),
+                        (seeds - want_seeds).abs().max().item())
+            if not same:
+                raise AssertionError(f"the tracker kernel disagrees at N={n} trial {trial}: "
+                                     f"rows differing {int((card != want).any(-1).sum())}")
+        log(f"  track N={n}: 4 random banks and ball sets, banks and seeds equal to the plain "
+            f"version bit for bit (tol exact); active rows after the step "
+            f"{int(card[..., 9].sum())} of {n * 8}")
+    n = 4
+    seq_np = track_sequence(np, gen, n, TRACK_STEPS)
+    seq = torch.from_numpy(seq_np).to(device)
+    card = torch.zeros((n, 8, 10), device=device)
+    plain = card.clone()
+    history = [plain.cpu().numpy()]
+    for s in range(TRACK_STEPS):
+        seeds = track_banks(card, seq[s], cfg, 100)
+        plain, want_seeds = plain_track_banks(plain, seq[s], cfg, 100)
+        if not (torch.equal(card, plain) and torch.equal(seeds, want_seeds)):
+            raise AssertionError(f"the tracker kernel disagrees at step {s} of the sequence")
+        history.append(plain.cpu().numpy())
+    ev = sequence_events(np, np.stack(history), seq_np, cfg)
+    log(f"  track sequence: {TRACK_STEPS} steps of {n} banks equal to the plain version bit "
+        f"for bit (tol exact); events {ev}")
+    if min(ev.values()) == 0:
+        raise AssertionError(f"the tracker sequence missed a kind of event: {ev}")
+
+    times = {}
+    for n in (1, 4, 16):
+        banks, balls = random_banks(np, gen, n)
+        card = torch.from_numpy(banks).to(device)
+        b = torch.from_numpy(balls).to(device)
+        ms, _ = time_ms(lambda: track_banks(card, b, cfg, 100), torch)
+        plain_ms, _ = time_ms(lambda: plain_track_banks(card, b, cfg, 100), torch)
+        # each bank and ball slot read once, the bank and the seeds written once
+        bms, by = bound_ms(2 * 4 * n * (8 * 10 + 100 * 4), 0.0)
+        times[n] = (ms, plain_ms, bms, by)
+    log("  track times by N (kernel_ms, plain_ms, bound_ms, bound_by): "
+        + ", ".join(f"N={n} {t}" for n, t in times.items())
+        + "; library: none (no one torch call runs the tracker)")
+    banks, balls = random_banks(np, gen, 1)
+    one = torch.from_numpy(banks).to(device)
+    one_balls = torch.from_numpy(balls).to(device)
+    ms, plain_ms, bms, by = times[1]
+    return {
+        "name": "track", "route": "cuda", "source": "tod_tpu_torch/csrc/track.cu",
+        "replaces": "tod_tpu/track/tracker.py:113",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "own": (lambda: track_banks(one, one_balls, cfg, 100), "track_kernel"),
+    }
+
+
 def reset(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
@@ -813,14 +970,7 @@ def main_path(torch, np, counters):
     t = time.time()
     eng.serve_step_plan(frames[0])  # warm-up: cuDNN plans, kernel loads
     log(f"  warm-up frame {1e3 * (time.time() - t):.1f} ms")
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        t = time.perf_counter()
-        plan = eng.serve_step_plan(frames[1])
-        enqueue_ms = 1e3 * (time.perf_counter() - t)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    plan, enqueue_ms = sync_checked(torch, lambda: eng.serve_step_plan(frames[1]))
     t = time.perf_counter()
     check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
     log(f"  one frame under set_sync_debug_mode('error'): no host synchronisation; "
@@ -855,6 +1005,16 @@ def main_path(torch, np, counters):
     return Path.from_plan(plan), launches, statistics.median(per_frame), eng, frames
 
 
+def union_us(spans) -> float:
+    """The length of the union of sorted (start, end) intervals: the
+    device's busy time."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
+
+
 def stage_profile(torch, eng, packed, kernel_names) -> None:
     """One profiled ``serve_step_plan`` call: the device time of each
     ``stage/`` range the engine opens, of each hand-written kernel (the
@@ -873,10 +1033,7 @@ def stage_profile(torch, eng, packed, kernel_names) -> None:
               if e.name.startswith("stage/") and e.device_type == DeviceType.CPU}
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA and not e.name.startswith("stage/"))
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:  # the union of the device's busy intervals
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
+    busy_us = union_us(spans)
     if not spans:
         log(f"  stage profile: the profiler recorded no device activity; device times "
             f"not measured (frame {wall_ms:.2f} ms under the profiler)")
@@ -1248,7 +1405,9 @@ def bench_phase(torch, np, counters) -> None:
     reset(counters)
     lines = [configs.run_config(2, dev, n=10), configs.run_config(3, dev, n=10),
              configs.run_config(4, dev, n=10), configs.run_config(7, dev, k=8),
-             configs.run_config(14, dev, k=4)]
+             configs.run_config(14, dev, k=4),
+             configs.run_config(16, dev, n_ticks=8, k=4, sweep=(4,)),
+             configs.run_config(19, dev, k=4, n_frames=16, ms_k=4)]
     lines.append(headline.measure(dev, n_frames=40, runs=1, bounded_runs=1, k=16))
     launches = read(counters)
     for line in lines:
@@ -1263,6 +1422,15 @@ def bench_phase(torch, np, counters) -> None:
         *(f"no device name in {line['metric']}" for line in lines
           if not line["device"].get("name")),
         *(f"mfu {m} not in (0, 1]" for m in mfus if m is None or not 0 < m <= 1),
+        # configs 16 and 19: the device's busy time beside each chained time
+        *(f"config 16 device_tick_ms {r['device_tick_ms']}" for r in lines[5]["sweep"]
+          if not r["device_tick_ms"] > 0),
+        *(f"config 19 {hw} {f} {row[f]}" for hw, row in lines[6]["steps"].items()
+          for f in ("plan_step_busy_ms", "track_step_busy_ms", "track_mem_step_busy_ms")
+          if not row[f] > 0),
+        *(f"config 19 multistream {f} {lines[6]['multistream_tracked'][f]}"
+          for f in ("tick_busy_ms", "tick_tracked_busy_ms")
+          if not lines[6]["multistream_tracked"][f] > 0),
     ]
     if not head["fps_e2e_320x240_b1"] > 0 or not head["bounded_fps"] > 0:
         problems.append(f"headline fps {head['fps_e2e_320x240_b1']}, {head['bounded_fps']}")
@@ -1300,13 +1468,7 @@ def semantic_path(torch, np, state, counters):
     torch.cuda.synchronize()
     log(f"  engine: mode semantic, camera {cfg.camera.width}x{cfg.camera.height}, model input "
         f"{cfg.model.input_size} {cfg.model.dtype}; warm-up frame {1e3 * (time.time() - t):.1f} ms")
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        t = time.perf_counter()
-        plan = eng.serve_step_plan(frames[1])
-        enqueue_ms = 1e3 * (time.perf_counter() - t)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    plan, enqueue_ms = sync_checked(torch, lambda: eng.serve_step_plan(frames[1]))
     check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
     log(f"  one semantic frame under set_sync_debug_mode('error'): no host synchronisation; "
         f"enqueued in {enqueue_ms:.2f} ms")
@@ -1476,6 +1638,285 @@ def semantic_apps(root, np) -> float:
     return fps
 
 
+def sync_checked(torch, fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: any host
+    synchronisation raises.  Returns (result, enqueue ms)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        out = fn()
+        ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, ms
+
+
+def read_reply(sock, n_fixed=None):
+    """One reply: ``n_fixed`` bytes, or a u32-length-prefixed payload."""
+    data = b""
+    while True:
+        if n_fixed is not None and len(data) >= n_fixed:
+            return data[:n_fixed]
+        if n_fixed is None and len(data) >= 4 and len(data) >= 4 + int.from_bytes(data[:4], "big"):
+            return data[4:]
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise AssertionError(f"the server closed the connection after {len(data)} bytes")
+        data += chunk
+
+
+def tracked_path(torch, np, state, counters):
+    """Phase 15: tracked serving at the app's configuration (640x480
+    camera, model at 480x640, bf16) with the obstacle memory (0.8): one
+    ``serve_step_track_plan`` and one ``serve_step_track_plan_mem`` frame
+    under the sync check, 8 tracked frames with their launch counts (the
+    tracker kernel, K4 and the relaxation once a planning frame), the bank
+    on the card against the CPU's plain ``track_update`` fed the card's own
+    ball slots, and ``run_supervised`` with the tracker."""
+    from tod_tpu_torch.core.config import ModelConfig, PipelineConfig, PlannerConfig, TrackerConfig
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.server import PathStore
+    from tod_tpu_torch.track import track_update
+
+    cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640)),
+                         planner=PlannerConfig(backend="tpu"),
+                         tracker=TrackerConfig(enabled=True, obstacle_memory=0.8))
+    eng = Engine(cfg, state, device="cuda")
+    warm = eng.warmup()
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(cfg.camera, seed=0, n_frames=N_FRAMES + 1).frames()]
+    bank, mem = eng._init_tracks(), eng._init_obstacle_mem()
+    (plan, _), ms_a = sync_checked(torch, lambda: eng.serve_step_track_plan(frames[0], bank))
+    check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
+    (plan, _, _), ms_b = sync_checked(
+        torch, lambda: eng.serve_step_track_plan_mem(frames[0], bank, mem))
+    check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
+    log(f"  engine: tracked, obstacle memory 0.8, camera {cfg.camera.width}x{cfg.camera.height}, "
+        f"model input {cfg.model.input_size} {cfg.model.dtype}, warm-up {warm:.2f}s "
+        f"{eng.warmup_breakdown}; one serve_step_track_plan and one serve_step_track_plan_mem "
+        f"frame under set_sync_debug_mode('error'): no host synchronisation; enqueued in "
+        f"{ms_a:.2f} and {ms_b:.2f} ms")
+
+    bank, mem = eng._init_tracks(), eng._init_obstacle_mem()
+    reset(counters)
+    per_frame, n_valid, confirmed = [], [], []
+    for packed in frames[1:]:
+        t = time.perf_counter()
+        plan, bank, mem = eng.serve_step_track_plan_mem(packed, bank, mem)
+        buf = plan.cpu().numpy()
+        per_frame.append(1e3 * (time.perf_counter() - t))
+        n_valid.append(check_plan(np, buf, cfg.planner.max_path_steps))
+        confirmed.append(int(((bank[:, 9] > 0) & (bank[:, 7] >= 2)).sum()))
+    launches = read(counters)
+    log(f"  ms per tracked+memory frame: {[round(x, 2) for x in per_frame]} (median "
+        f"{statistics.median(per_frame):.2f}); plan n_valid {n_valid}; confirmed tracks "
+        f"{confirmed}; memory max {mem.max().item():.1f}")
+    log(f"  launches over {N_FRAMES} tracked frames: {launches}")
+    if any(n != N_FRAMES for n in launches.values()):
+        raise AssertionError(f"kernels not launched once a tracked frame: {launches}")
+    if max(n_valid) == 0 or max(confirmed) == 0:
+        raise AssertionError("the tracked frames confirmed no track or planned no path")
+
+    # the kernel on the served frames' ball slots against the plain version on the CPU
+    bank = eng._init_tracks()
+    same = []
+    with torch.inference_mode():
+        for packed in frames[1:]:
+            _, balls = eng.serve_step_scene(packed)
+            before = bank.cpu()
+            seeds = eng._track(bank, balls)
+            want = track_update(before, balls.cpu(), cfg.tracker)
+            same.append(torch.equal(bank.cpu(), want))
+    log(f"  the bank after each of {N_FRAMES} served frames' ball slots equal to the CPU's plain "
+        f"track_update bit for bit (tol exact): {same}; seeds {seeds.shape[0]} slots")
+    if not all(same):
+        raise AssertionError("the tracker kernel disagrees with the CPU on served ball slots")
+
+    store = PathStore()
+    reset(counters)
+    m = eng.run_supervised(lambda: SyntheticSource(cfg.camera, n_frames=STREAM_FRAMES),
+                           n_frames=STREAM_FRAMES, path_store=store, max_restarts=3,
+                           stall_timeout_s=10.0, plan_every=4, max_inflight=2, warmup=False)
+    run_launches = read(counters)
+    path = store.get()
+    log(f"  run_supervised with the tracker: {m['n_frames']} frames, fps={m['fps']:.3f}, "
+        f"plans_done={m['plans_done']}, published path {len(path.directions)} directions, "
+        f"launches {run_launches}")
+    if m["n_frames"] != STREAM_FRAMES or run_launches["track"] != STREAM_FRAMES // 4 \
+            or run_launches["bump"] != STREAM_FRAMES or m["plans_done"] < 1:
+        raise AssertionError(f"the tracked run fell short: {m['n_frames']} frames, launches "
+                             f"{run_launches}")
+    return launches, statistics.median(per_frame)
+
+
+def device_activity(torch, fn) -> tuple[float, float, int]:
+    """(device busy ms, host ms, device activities) of one profiled ``fn()``,
+    synchronised."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    return union_us(spans) / 1e3, wall_ms, len(spans)
+
+
+def multistream_path(torch, np, state, counters):
+    """Phase 16: ``MultiStreamEngine`` at 320x240 with N = 4: one batched
+    tick and one tracked tick under the sync check, the launches of a
+    tracked tick, and, in f32 with TF32 off, each stream's class and id
+    maps, scene and plan against a single-stream ``Engine`` on the same
+    frame, and ``TRACKED_TICKS`` tracked ticks' plans and banks against the
+    single-stream tracked step, every stream exactly."""
+    from tod_tpu_torch.bench.configs import _pipeline_cfg
+    from tod_tpu_torch.core.config import ModelConfig, PlannerConfig, TrackerConfig
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.runtime.multistream import MultiStreamEngine
+    from tod_tpu_torch.track.tracker import ACTIVE, HITS
+
+    n = 4
+    cfg = _pipeline_cfg().replace(planner=PlannerConfig(backend="tpu"),
+                                  tracker=TrackerConfig(enabled=True))
+    ms = MultiStreamEngine(cfg, n_streams=n, params=state, device="cuda")
+    warm = ms.warmup()
+    first = [next(SyntheticSource(cfg.camera, seed=7 + i, n_frames=1).frames()) for i in range(n)]
+    packed = [pack_frame(f.rgb, f.depth) for f in first]
+    batch = torch.from_numpy(np.stack(packed)).pin_memory()
+    plans, ms_a = sync_checked(torch, lambda: ms._serve_plan_batch(batch))
+    banks = ms._init_track_bank()
+    (tplans, _), ms_b = sync_checked(torch, lambda: ms._serve_plan_batch_track(batch, banks))
+    n_valid = [check_plan(np, p, cfg.planner.max_path_steps) for p in plans.cpu().numpy()]
+    tvalid = [check_plan(np, p, cfg.planner.max_path_steps) for p in tplans.cpu().numpy()]
+    log(f"  MultiStreamEngine N={n} at {cfg.camera.width}x{cfg.camera.height}, warm-up "
+        f"{warm:.2f}s: one tick and one tracked tick under set_sync_debug_mode('error'): no "
+        f"host synchronisation; enqueued in {ms_a:.2f} and {ms_b:.2f} ms; plan n_valid {n_valid}, "
+        f"tracked {tvalid}")
+    reset(counters)
+    ms._serve_plan_batch_track(batch, banks)
+    launches = read(counters)
+    want = {"mask_assembly": 1, "track": 1, "bump": n, "connections": n, "relax": n,
+            "path_walk": n}
+    log(f"  launches in one tracked tick of {n} streams: {launches} (K1 and the tracker once "
+        f"a tick, the rest once a stream)")
+    if launches != want:
+        raise AssertionError(f"a tracked tick launched {launches}, not {want}")
+    busy, wall, n_act = device_activity(torch, lambda: ms._serve_plan_batch_track(batch, banks))
+    log(f"  one profiled tracked tick of {n} streams: device busy {busy:.3f} ms of {wall:.3f} ms "
+        f"under the profiler, {n_act} device activities ({n_act / n:.0f} a stream)")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.replace(model=ModelConfig(input_size=(240, 320), dtype="float32"))
+    ms32 = MultiStreamEngine(f32, n_streams=n, params=state, device="cuda")
+    eng32 = Engine(f32, state, device="cuda")
+    rows = []
+    with torch.inference_mode():
+        heights, balls, dets = ms32._scenes(batch)
+        plans = ms32._plan_all(heights, balls)
+        for i in range(n):
+            _, one = eng32._step(batch[i])
+            h1, b1 = eng32.serve_step_scene(batch[i])
+            same_maps = (torch.equal(dets.class_map[i], one.class_map)
+                         and torch.equal(dets.id_map[i], one.id_map))
+            exact = (torch.equal(heights[i], h1) and torch.equal(balls[i], b1)
+                     and torch.equal(plans[i], eng32.serve_step_plan(batch[i])))
+            rows.append((same_maps, exact))
+    log(f"  f32 (TF32 off) tick against a single-stream Engine, per stream (class and id maps "
+        f"equal, scene and plan equal; all exact): {rows}")
+    if not all(same and ex for same, ex in rows):
+        raise AssertionError("the multistream tick disagrees with the single-stream engine")
+
+    # the tracked tick against the single-stream tracked step, stream by stream,
+    # from the same starting banks over TRACKED_TICKS frames a stream
+    frames = [[torch.from_numpy(pack_frame(f.rgb, f.depth)) for f in
+               SyntheticSource(cfg.camera, seed=7 + i, n_frames=TRACKED_TICKS).frames()]
+              for i in range(n)]
+    banks32 = ms32._init_track_bank()
+    singles = [banks32[i].clone() for i in range(n)]
+    agree = []
+    with torch.inference_mode():
+        for t in range(TRACKED_TICKS):
+            tick = torch.stack([frames[i][t] for i in range(n)]).pin_memory()
+            tplans, _ = ms32._serve_plan_batch_track(tick, banks32)
+            for i in range(n):
+                plan1, _ = eng32.serve_step_track_plan(tick[i], singles[i])
+                agree.append(torch.equal(tplans[i], plan1) and torch.equal(banks32[i], singles[i]))
+    confirmed = int(((banks32[..., ACTIVE] > 0)
+                     & (banks32[..., HITS] >= f32.tracker.min_hits)).sum())
+    log(f"  f32 tracked tick against Engine.serve_step_track_plan stream by stream, "
+        f"{TRACKED_TICKS} ticks of {n} streams from the same starting banks: plans and banks "
+        f"equal (exact) in {sum(agree)} of {len(agree)}; {confirmed} confirmed tracks at the end")
+    if not all(agree) or confirmed == 0:
+        raise AssertionError("the tracked multistream tick disagrees with the tracked Engine "
+                             f"({sum(agree)} of {len(agree)} agree, {confirmed} confirmed)")
+    return launches
+
+
+def app_streams(root):
+    """``python3 -m tod_tpu_torch.app --track --obstacle-memory 0.8
+    --plan-every 4`` with one ``GetPath`` and one ``GetStat``; then ``--streams 2
+    --track`` asked ``GetPthN 0``, ``GetPthN 1``, ``NewPthN 1`` and
+    ``GetStat``, whose ``streams`` list has 2 entries."""
+    def talk_tracked(port):
+        # GetPath's reply has no length: it ends where GetStat's length-prefixed
+        # JSON, which starts with its first key, begins
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+            sock.sendall(b"GetPath" + b"GetStat")
+            data = b""
+            while True:
+                at = data.find(b'{"uptime_s"')
+                if at >= 4 and len(data) >= at + int.from_bytes(data[at - 4 : at], "big"):
+                    break
+                chunk = sock.recv(65536)
+                if not chunk:
+                    raise AssertionError(f"the server closed after {len(data)} bytes")
+                data += chunk
+            if (at - 4 - 8) % 8:
+                raise AssertionError(f"GetPath answered {at - 4} bytes, not 8 + 8 n")
+            return json.loads(data[at:])
+
+    metrics, stat, secs = run_app(root, ["--track", "--obstacle-memory", "0.8", "--plan-every",
+                                         "4", "--frames", "32", "--port", "0"], talk_tracked)
+    log(f"  app --track --obstacle-memory 0.8 --plan-every 4: rc 0 in {secs:.1f}s, n_frames="
+        f"{metrics['n_frames']}, fps={metrics['fps']:.3f}, plans_done={metrics['plans_done']}, "
+        f"last_path_len={metrics['last_path_len']}; GetStat requests {stat['requests']}")
+    if (metrics["n_frames"] != 32 or metrics["plans_done"] < 1 or "pipeline" not in stat
+            or stat["requests"]["GetPath"] != 1):
+        raise AssertionError("the tracked app fell short")
+
+    def talk_streams(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+            out = {}
+            for name, cmd in (("GetPthN 0", b"GetPthN" + (0).to_bytes(4, "big")),
+                              ("GetPthN 1", b"GetPthN" + (1).to_bytes(4, "big"))):
+                sock.sendall(cmd)
+                out[name] = len(read_reply(sock))
+            sock.sendall(b"NewPthN" + (1).to_bytes(4, "big"))
+            out["NewPthN 1"] = read_reply(sock, 2)
+            sock.sendall(b"GetStat")
+            out["GetStat"] = json.loads(read_reply(sock))
+            return out
+
+    metrics, ans, secs = run_app(root, ["--streams", "2", "--track", "--frames", "24", "--port",
+                                        "0"], talk_streams)
+    stat = ans.pop("GetStat")
+    log(f"  app --streams 2 --track: rc 0 in {secs:.1f}s, n_ticks={metrics['n_ticks']}, "
+        f"frames_per_s={metrics['frames_per_s']:.3f}, plans_done={metrics['plans_done']}; "
+        f"answers {ans}; GetStat streams {stat['streams']}, requests {stat['requests']}")
+    if (ans["NewPthN 1"] != b"OK" or len(stat.get("streams", [])) != 2
+            or stat["requests"]["GetPthN"] != 2 or metrics["plans_done"] < 2):
+        raise AssertionError("the multistream app fell short")
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -1531,6 +1972,7 @@ def main() -> int:
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
     from tod_tpu_torch.kernels.relax import bellman_ford_grid
+    from tod_tpu_torch.kernels.track import track_banks
     from tod_tpu_torch.native import loader, ring
     from tod_tpu_torch.ops.quantize import quantize_tensor_pallas
 
@@ -1543,6 +1985,7 @@ def main() -> int:
     k4_call = {"bump": dilate_peaks}
     ptq_path = {**serving, "quantize": quantize_tensor_pallas}
     semantic = {"cc_labels": root_labels, **serving}
+    tracked = {"track": track_banks, **serving}
 
     log("== 1. device")
     smi = nvidia_smi_line()
@@ -1574,7 +2017,7 @@ def main() -> int:
     kernels = [check_k1(torch, np, rng, device), check_k2(torch, np, rng, device),
                check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
                *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device),
-               check_cc(torch, np, rng, device)]
+               check_cc(torch, np, rng, device), check_track(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
 
     log("== 4. main path")
@@ -1604,7 +2047,7 @@ def main() -> int:
     own_times(torch, kernels, floor_ms)
 
     log("== 12. the bench")
-    bench_phase(torch, np, serving)
+    bench_phase(torch, np, tracked)
 
     log("== 13. semantic mode, app configuration")
     semantic_launches, semantic_ms = semantic_path(torch, np, state, semantic)
@@ -1612,19 +2055,30 @@ def main() -> int:
     log("== 14. the app in semantic mode on the ring with auth, and on a PNG")
     semantic_fps = semantic_apps(root, np)
 
+    log("== 15. tracked serving, app configuration, obstacle memory")
+    t = time.time()
+    tracked_launches, tracked_ms = tracked_path(torch, np, state, tracked)
+
+    log("== 16. multistream, 4 streams at 320x240, and the tracked and multistream apps")
+    multistream_path(torch, np, state, tracked)
+    app_streams(root)
+    log(f"  phases 15 and 16 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
     launches["bump_strips"] = stream_launches["bump_strips"]
     launches["quantize"] = ptq_launches["quantize"]
     launches["cc_labels"] = semantic_launches["cc_labels"]
+    launches["track"] = tracked_launches["track"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"main path median {frame_ms:.2f} ms/frame; semantic {semantic_ms:.2f} ms/frame, "
-        f"semantic app {semantic_fps:.3f} fps; total {time.time() - t_start:.1f}s")
+        f"semantic app {semantic_fps:.3f} fps; tracked+memory {tracked_ms:.2f} ms/frame; total "
+        f"{time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

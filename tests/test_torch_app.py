@@ -3,7 +3,8 @@ the JAX package's ``Engine.run`` in device-planner mode, ``run_supervised``
 recovering from a stalled source, TODTRACE files across both packages, the
 stage timer, the watchdog, the paced source, ``GetStat`` with live metrics,
 and ``python -m tod_tpu_torch.app`` (``main``) with its planners, sources,
-modes and server flags, and its refused flags."""
+modes and server flags, tracking (``--track``, ``--obstacle-memory``) and
+``--streams``, the conflicts between them, and its refused flags."""
 
 from __future__ import annotations
 
@@ -271,13 +272,67 @@ def test_main_plans_on_the_host(planner, capsys, caplog):
 @pytest.mark.parametrize("flags,item", [
     (["--todx", "a.todx"], "M15"),
     (["--int8"], "M12"),
-    (["--track"], "M10"),
-    (["--obstacle-memory", "0.8"], "M10"),
-    (["--streams", "2"], "M11"),
     (["--pipeline"], "M16"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md .*{item}"):
+        main(flags + ["--frames", "1", "--no-server"], device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["--track"], ["--track", "--obstacle-memory", "0.8"]])
+def test_tracking_flags_serve(flags, capsys, caplog):
+    """``--track`` (with and without the obstacle memory) takes the device
+    planner and plans every ``--plan-every``-th frame from the track bank."""
+    caplog.set_level("INFO")
+    rc = main(flags + ["--frames", "4", "--plan-every", "2", "--width", "64", "--height", "48",
+                       "--no-server", "--metrics-json"], device="cpu")
+    assert rc == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["n_frames"] == 4 and metrics["plans_done"] >= 1
+    assert "planner auto: the device planner on cpu" in caplog.text
+
+
+def test_streams_serve_each_stream_over_the_wire():
+    """``--streams 2 --track`` on two rings: ``GetPthN`` answers each
+    stream, ``NewPthN`` resets one, ``GetStat`` lists both streams."""
+    def ask(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            lengths = []
+            for i in (0, 1):
+                s.sendall(b"GetPthN" + i.to_bytes(4, "big"))
+                n = int.from_bytes(s.recv(4), "big")
+                data = b""
+                while len(data) < n:
+                    data += s.recv(n - len(data))
+                lengths.append(n)
+            s.sendall(b"NewPthN" + (1).to_bytes(4, "big"))
+            assert s.recv(2) == b"OK"
+            return lengths, read_stat(s)
+
+    lengths, stat = run_with_client(["--streams", "2", "--track"] + RING, ask)
+    assert all(n >= 8 and (n - 8) % 8 == 0 for n in lengths)
+    assert len(stat["streams"]) == 2 and stat["requests"]["GetPthN"] == 2
+    assert stat["requests"]["NewPthN"] == 1 and "restarts" in stat["pipeline"]
+
+
+def test_streams_without_a_server(capsys):
+    rc = main(["--streams", "3", "--frames", "3", "--width", "64", "--height", "48",
+               "--no-server", "--metrics-json"], device="cpu")
+    assert rc == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["n_streams"] == 3 and metrics["n_ticks"] >= 1
+    assert metrics["plans_done"] == 3 * metrics["n_ticks"] and metrics["restarts"] == 0
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--track", "--planner", "native"], SystemExit, "requires the device planner"),
+    (["--track", "--plan-every", "0"], SystemExit, "requires --plan-every"),
+    (["--track", "--pipeline"], SystemExit, "fused-graph serving"),
+    (["--track", "--obstacle-memory", "0.8", "--streams", "2"], SystemExit, "single-stream"),
+    (["--obstacle-memory", "0.8"], ValueError, "requires tracker.enabled"),
+])
+def test_conflicting_flags_are_refused_as_the_jax_app_refuses(flags, error, match):
+    with pytest.raises(error, match=match):
         main(flags + ["--frames", "1", "--no-server"], device="cpu")
 
 

@@ -33,11 +33,13 @@ METRICS = {
     7: "batch2_model_throughput_64x64",
     8: "fps_latency_bounded_320x240",
     14: "batch_scaling_peak_throughput_64x64",
+    16: "fps_multistream_sweep_320x240",
     17: "fps_latency_bounded_640x480",
+    19: "tracked_serving_step_delta_ms",
 }
 # the ROADMAP.md item each unported config waits for
 ITEMS = {1: "data/frc_balls.png", 9: "M16", 10: "M12", 11: "M14", 12: "M14", 13: "M12", 15: "M13",
-         16: "M11", 18: "M16", 19: "M10"}
+         18: "M16"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
 
@@ -438,4 +440,5 @@ class TestProfile:
         assert set(our_kernels()) == {
             "bump_kernel", "bump_memo_kernel", "cc_flatten_kernel", "cc_init_kernel",
             "cc_merge_kernel", "connections_kernel", "mask_assembly_kernel",
-            "path_walk_kernel", "quantize_colmax_kernel", "quantize_kernel", "relax_kernel"}
+            "path_walk_kernel", "quantize_colmax_kernel", "quantize_kernel", "relax_kernel",
+            "track_kernel"}

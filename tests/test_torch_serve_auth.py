@@ -1,8 +1,9 @@
 """The port's path server against the JAX package's on the same bytes: the
 ``AuthTok`` handshake with auth off (a no-op ``OK``) and on, its length
 bound and quiet drops, the ``GetPthN``/``NewPthN`` commands without
-per-stream stores, the ``GetStat`` counter keys, and TLS and mutual TLS
-with certificates made by ``cryptography``."""
+per-stream stores and with them (in range and out of range), the
+``GetStat`` counter keys and ``streams`` list, and TLS and mutual TLS with
+certificates made by ``cryptography``."""
 
 from __future__ import annotations
 
@@ -48,23 +49,37 @@ SESSIONS = {
 }
 
 
+def stream_path(kind, i: int):
+    """Stream i's path: i + 1 directions, stamped CREATED + i."""
+    return kind(CREATED + i, [(1.0 + i, 0.25 * k) for k in range(i + 1)])
+
+
 class Pair:
     """The JAX server and the port's, each on its own thread and port, each
-    with a store holding the same path."""
+    with a store holding the same path, and with ``streams`` per-stream
+    stores holding the same per-stream paths."""
 
-    def __init__(self, **cfg):
+    def __init__(self, streams: int | None = None, **cfg):
         self.stores = {"jax": jax_server.PathStore(), "port": port_server.PathStore()}
         self.paths = {"jax": JaxPath(CREATED, list(DIRECTIONS)),
                       "port": Path(CREATED, list(DIRECTIONS))}
+        self.n_streams = streams
+        self.stream_stores = {"jax": None, "port": None}
         self.threads, self.servers = {}, {}
-        for name, mod, config in (("jax", jax_server, JaxServerConfig),
-                                  ("port", port_server, ServerConfig)):
+        for name, mod, config, kind in (("jax", jax_server, JaxServerConfig, JaxPath),
+                                        ("port", port_server, ServerConfig, Path)):
+            if streams is not None:
+                self.stream_stores[name] = [mod.PathStore() for _ in range(streams)]
             self.reset(name)
             self.threads[name], self.servers[name] = mod.run_in_thread(
-                self.stores[name], config(port=0, **cfg))
+                self.stores[name], config(port=0, **cfg),
+                stream_stores=self.stream_stores[name])
 
     def reset(self, name: str) -> None:
         self.stores[name].set(self.paths[name])
+        kind = JaxPath if name == "jax" else Path
+        for i, store in enumerate(self.stream_stores[name] or ()):
+            store.set(stream_path(kind, i))
 
     def close(self) -> None:
         for name, mod in (("jax", jax_server), ("port", port_server)):
@@ -118,9 +133,27 @@ def with_auth():
     pair.close()
 
 
-def run_sessions(pair: Pair) -> dict[str, dict[str, bytes]]:
+def index(i: int) -> bytes:
+    return i.to_bytes(4, "big")
+
+
+# each session: the bytes one client sends to servers with 3 stream stores
+STREAM_SESSIONS = {
+    "GetPthN each stream": b"GetPthN" + index(0) + b"GetPthN" + index(1) + b"GetPthN" + index(2),
+    "NewPthN then another stream": b"NewPthN" + index(1) + b"GetPthN" + index(2),
+    "pipelined with the single-store commands":
+        b"GetPath" + b"GetPthN" + index(2) + b"GetPth2" + b"NewPthN" + index(0),
+    "GetPthN out of range": b"GetPthN" + index(3) + b"GetPath",
+    "NewPthN out of range": b"NewPthN" + index(9) + b"GetPath",
+    "GetPthN largest index": b"GetPthN" + index(2**32 - 1),
+    "GetPthN short index": b"GetPthN" + b"\x00",
+    "in range after the handshake": auth() + b"GetPthN" + index(1),
+}
+
+
+def run_sessions(pair: Pair, sessions=SESSIONS) -> dict[str, dict[str, bytes]]:
     replies: dict[str, dict[str, bytes]] = {}
-    for session, data in SESSIONS.items():
+    for session, data in sessions.items():
         for name in ("jax", "port"):
             pair.reset(name)
             replies.setdefault(session, {})[name] = exchange(pair.servers[name].port, data)
@@ -267,3 +300,55 @@ def test_ssl_context_only_with_a_certificate(tmp_path):
     ctx = port_server.PathServer(store, ServerConfig(tls_cert=cert, tls_key=key,
                                                      tls_client_ca=cert))._ssl_context()
     assert ctx.verify_mode == ssl.CERT_REQUIRED
+
+
+@pytest.fixture(scope="module")
+def with_streams():
+    pair = Pair(streams=3)
+    yield pair
+    pair.close()
+
+
+def test_stream_stores_same_bytes_same_replies_and_counters(with_streams):
+    """Both servers with 3 stream stores get the same sessions: the same
+    replies and counter changes; each GetPthN answers its stream's path with
+    GetPth2's framing, NewPthN resets only its stream, and an index out of
+    range drops the connection as an error."""
+    pair = with_streams
+    before = {name: dict(s.counters) for name, s in pair.servers.items()}
+    replies = run_sessions(pair, STREAM_SESSIONS)
+    for session, got in replies.items():
+        assert got["port"] == got["jax"], session
+    counts = {name: {k: v - before[name][k] for k, v in s.counters.items()}
+              for name, s in pair.servers.items()}
+    assert counts["port"] == counts["jax"]
+    framed = [len(p).to_bytes(4, "big") + p
+              for p in (stream_path(Path, i).serialize() for i in range(3))]
+    assert replies["GetPthN each stream"]["port"] == b"".join(framed)
+    assert replies["NewPthN then another stream"]["port"] == b"OK" + framed[2]
+    assert replies["in range after the handshake"]["port"] == b"OK" + framed[1]
+    for session in ("GetPthN out of range", "NewPthN out of range", "GetPthN largest index",
+                    "GetPthN short index"):
+        assert replies[session]["port"] == b"", session
+    assert counts["port"]["errors"] == 3 and counts["port"]["GetPthN"] == 6
+    assert counts["port"]["NewPthN"] == 2
+    # NewPthN reset that stream alone (the last session to touch stream 1)
+    pair.reset("port")
+    exchange(pair.servers["port"].port, b"NewPthN" + index(1))
+    stores = pair.stream_stores["port"]
+    assert stores[1].get().directions == [] and len(stores[2].get().directions) == 3
+    assert pair.stores["port"].get().directions == DIRECTIONS
+
+
+def test_getstat_lists_the_streams_as_jax_does(with_streams, no_auth):
+    pair = with_streams
+    for name in ("jax", "port"):
+        pair.reset(name)
+    stats = {name: getstat(s.port) for name, s in pair.servers.items()}
+    assert set(stats["port"]) == set(stats["jax"]) and "streams" in stats["port"]
+    for got, want in zip(stats["port"]["streams"], stats["jax"]["streams"]):
+        assert set(got) == set(want) == {"path_age_s", "path_len", "path_truncated"}
+        assert (got["path_len"], got["path_truncated"]) == (want["path_len"],
+                                                            want["path_truncated"])
+    assert [x["path_len"] for x in stats["port"]["streams"]] == [1, 2, 3]
+    assert "streams" not in getstat(no_auth.servers["port"].port)

@@ -7,6 +7,8 @@ Run as::
     python -m tod_tpu_torch.app --source trace --trace capture.todtrace
     python -m tod_tpu_torch.app --source ring --mode semantic --auth-token T
     python -m tod_tpu_torch.app --source png --image scene.png --debug-dump
+    python -m tod_tpu_torch.app --track --obstacle-memory 0.8 --plan-every 4
+    python -m tod_tpu_torch.app --streams 4 --track
 
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
@@ -22,8 +24,14 @@ the JAX package does: ``tpu``, and ``auto`` on the card, plan on the device
 the CPU, read the f16 height and the balls back and plan on the host, with
 the C++ planner (built with g++ at first use) or its NumPy fallback; a host
 ``auto`` takes native when it builds.  The log names the planner taken.
-Flags and values of features the port does not have yet exit with a message
-naming their item in ``ROADMAP.md``.
+``--track`` seeds the device planner from a bank of Kalman tracks updated by
+the tracker kernel each planning frame (it takes the device planner and
+``--plan-every``), ``--obstacle-memory D`` keeps a decayed memory of robot
+bumps beside it, and ``--streams N`` serves N camera streams a tick through
+``MultiStreamEngine``, each stream's path answered by ``GetPthN``/``NewPthN``;
+the reference's conflict checks between these flags hold.  Flags of features
+the port does not have yet exit with a message naming their item in
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -83,9 +91,6 @@ def _refuse_unported(args) -> None:
     refused = (
         (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
         (args.int8, "--int8", "B, M12: int8 inference"),
-        (args.track, "--track", "B, M10: tracking"),
-        (args.obstacle_memory != 0.0, "--obstacle-memory", "B, M10: obstacle memory"),
-        (args.streams != 1, "--streams", "B, M11: multistream"),
         (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
     )
     for hit, flag, item in refused:
@@ -93,10 +98,29 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"{flag} is not ported to tod_tpu_torch yet (ROADMAP.md {item})")
 
 
+def _check_conflicts(args) -> None:
+    """The JAX app's checks of flags that do not go together."""
+    if args.track and args.planner not in ("auto", "tpu"):
+        raise SystemExit(
+            f"--track requires the device planner (the track bank lives on the "
+            f"device inside the frame+plan step) - drop --planner {args.planner} "
+            f"or use --planner tpu")
+    if args.track and not args.plan_every and args.streams <= 1:
+        raise SystemExit("--track plans in-stream: requires --plan-every >= 1")
+    if args.track and args.pipeline:
+        raise SystemExit("--track is fused-graph serving (the track bank rides the plan "
+                         "dispatch; the stage-split pipeline has no plan stage to carry it)")
+    if args.obstacle_memory and args.streams > 1:
+        raise SystemExit("--obstacle-memory is single-stream: its state is a full (H, W) "
+                         "map per stream and the batched step does not keep the per-stream "
+                         "robot layer (runtime/multistream.py docstring)")
+
+
 def main(argv=None, device=None) -> int:
     """Serve on ``device`` (default ``cuda``; the tests pass ``"cpu"``)."""
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    _check_conflicts(args)
     _refuse_unported(args)
 
     from tod_tpu_torch.core.config import (
@@ -105,6 +129,7 @@ def main(argv=None, device=None) -> int:
         PipelineConfig,
         PlannerConfig,
         ServerConfig,
+        TrackerConfig,
     )
     from tod_tpu_torch.core.weights import load_checkpoint, load_pinned
     from tod_tpu_torch.planner.api import host_backend
@@ -121,8 +146,9 @@ def main(argv=None, device=None) -> int:
     cfg = PipelineConfig(
         camera=cam,
         model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8)),
-        planner=PlannerConfig(backend=args.planner, signed_turns=args.signed_turns,
-                              start_offset=args.start_offset),
+        planner=PlannerConfig(backend="tpu" if args.track else args.planner,
+                              signed_turns=args.signed_turns, start_offset=args.start_offset),
+        tracker=TrackerConfig(enabled=args.track, obstacle_memory=args.obstacle_memory),
         server=ServerConfig(host=args.host, port=args.port, auth_token=args.auth_token,
                             tls_cert=args.tls_cert, tls_key=args.tls_key,
                             tls_client_ca=args.tls_client_ca),
@@ -150,6 +176,9 @@ def main(argv=None, device=None) -> int:
                 raise SystemExit("--source trace requires --trace")
             return TraceSource(args.trace, loop=True, n_frames=args.frames)
         return RingSource(cam, fps=args.fps, trace_path=args.trace, n_frames=args.frames)
+
+    if args.streams > 1:
+        return _main_multistream(args, cfg, params, make_source, device)
 
     sources = [make_source()]
     last_source = list(sources)
@@ -204,6 +233,52 @@ def main(argv=None, device=None) -> int:
             metrics["n_frames"], metrics["fps"],
             metrics["stages"].get("plan", {}).get("p50_ms"),
         )
+    return 0
+
+
+def _main_multistream(args, cfg, params, make_source, device) -> int:
+    """``--streams N``: ``MultiStreamEngine`` serving N camera feeds a tick,
+    each stream's path on the wire by ``GetPthN``/``NewPthN``."""
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.runtime.multistream import MultiStreamEngine
+    from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
+
+    n = args.streams
+    if args.source == "synthetic":
+        # seed-varied feeds: a rig's cameras see different scenes
+        factories = [(lambda i=i: SyntheticSource(cfg.camera, seed=i, n_frames=args.frames))
+                     for i in range(n)]
+    else:
+        factories = [make_source for _ in range(n)]
+    engine = MultiStreamEngine(cfg, n_streams=n, params=params, device=device)
+    logging.info("%d streams on %s%s", n, engine.device, ", tracked" if engine.tracked else "")
+    stores = [PathStore() for _ in range(n)]
+    server_thread = server = None
+    if not args.no_server:
+        stats_fn = lambda: {  # noqa: E731 (GetStat's live metrics)
+            "ticks_per_s": engine.fps.fps,
+            "stages": engine.timer.summary(),
+            "restarts": engine.restarts,
+        }
+        server_thread, server = run_in_thread(stores[0], cfg.server, stats_fn=stats_fn,
+                                              stream_stores=stores)
+        logging.info("path server on %s:%s", cfg.server.host, server.port)
+    try:
+        # each stream's source supervised: a wedged or dead camera reopens
+        # while the others serve
+        metrics = engine.run_supervised(
+            factories, n_ticks=args.frames, path_stores=stores,
+            max_inflight=args.max_inflight or None, stall_timeout_s=10.0, max_restarts=3,
+        )
+    finally:
+        if server is not None:
+            stop_thread_server(server)
+            server_thread.join(timeout=5)
+    if args.metrics_json:
+        print(json.dumps(metrics, default=float))
+    else:
+        logging.info("done: %d ticks x %d streams, %.1f frames/s aggregate",
+                     metrics["n_ticks"], n, metrics["frames_per_s"])
     return 0
 
 

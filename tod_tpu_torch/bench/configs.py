@@ -40,6 +40,25 @@ Where the port differs from the JAX configs:
 - Configs 5 and 6 both report the ``latency`` p50 and p90 (the ``frame``
   p50 where no latency was sampled), as JAX config 6 and ``bench.py`` do;
   JAX config 5 reports the ``frame`` stage's p50.
+- Configs 16 and 19: each chained step or tick is ``chained_step_s``'s
+  events time, which on the card is the host's launch rate, since the
+  port's step is launched operation by operation from Python.  Beside it
+  each line gives the device's own busy time (``busy_ms``): config 16's
+  ``device_tick_ms`` is the busy time of one tick (the chained time is
+  ``chained_tick_ms``), and config 19 gives ``*_busy_ms`` beside each
+  chained step and tick and its deltas.  Config 16 serves 20 ticks a point
+  on the card where the JAX config serves 100: at 16 streams a tick took
+  7.6-9.7 s in the run loop against 76-107 ms chained on an H100
+  (``PERF.md``), so 100 ticks took longer than 15 minutes.
+  ``tools/multistream_feeds.py`` traces that stall to the synthetic feeds'
+  per-frame work (each feed thread makes its frames with numpy): fed
+  frames made before the run, the 16-stream tick took 131 ms against 107
+  ms chained on the same H100.  Whether the feeds hold the tick back
+  through the GIL or through the host's cores is not split.  Config 16's
+  ``rtt_pair_ms`` is ``transport_rtt_ms`` before and after a point, the
+  local card's readback floor.  Config 19's bounded point is
+  ``_bounded_point``'s, as configs 8 and 17 take it (no transport
+  correction).
 - A config whose modules the port lacks exits naming its ``ROADMAP.md``
   item (``UNPORTED``).
 """
@@ -54,10 +73,17 @@ import time
 import numpy as np
 import torch
 
-from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig, PlannerConfig
+from tod_tpu_torch.core.config import (
+    CameraConfig,
+    ModelConfig,
+    PipelineConfig,
+    PlannerConfig,
+    TrackerConfig,
+)
 from tod_tpu_torch.core.device import resolve_device
 from tod_tpu_torch.core.weights import load_pinned
 
+REF_TILE_MS = 50.0  # the reference's latency a 224x224 tile (Coral Edge TPU), BASELINE.md
 REF_FRAME_FPS = 7.0  # the reference's full-frame rate (Coral Edge TPU + Pi 4), BASELINE.md
 
 # the fields that fix the shapes of the weights: the pinned tree fits a
@@ -223,6 +249,19 @@ def chained_step_s(step, x0: torch.Tensor, k: int, device: torch.device):
             ev = start.elapsed_time(end) / 1e3 / k if on_card else host
             best_ev, best_host = min(best_ev, ev), min(best_host, host)
     return best_ev, best_host, out
+
+
+def busy_ms(step, x0: torch.Tensor, device: torch.device) -> float:
+    """The device's busy ms a call of ``step(x0)``: the union of its
+    activities over 8 calls under ``torch.profiler`` (1 on the CPU, where
+    the activities are the host's aten ops), ``profiling.top_ops``'s
+    ``busy_ms``.  Unlike ``chained_step_s``, it does not read the host's
+    launch rate.  Take it after every host-clock time of a config: a
+    profiler session slows the launches that follow it."""
+    from tod_tpu_torch.bench.profiling import capture_trace, top_ops
+
+    iters = _count(None, device, 8, 1)
+    return top_ops(capture_trace(lambda: step(x0), device, iters), device, iters)["busy_ms"]
 
 
 def count_flops(fn, *args) -> float:
@@ -544,6 +583,191 @@ def config17_latency_bounded_vga(device=None, n_frames: int | None = None) -> di
     return latency_bounded_serving((480, 640), device, n_frames)
 
 
+def config16_multistream_serving(device=None, n_ticks: int | None = None, k: int | None = None,
+                                 sweep: tuple[int, ...] | None = None) -> dict:
+    """Config 16: multi-stream serving capacity at 320x240: N paced 30 fps
+    synthetic feeds through ``MultiStreamEngine`` for ``n_ticks`` ticks at
+    each N of ``sweep`` (4, 8 and 16 on the card, 2 on the CPU), beside the
+    chained time of one batched tick (``k`` ticks chained), its device busy
+    time and the 30 fps streams the card covers at that device time.  The
+    value is the best point's fresh camera frames planned a second.
+    ``n_ticks`` defaults to 20 on the card (the JAX config's 100: see the
+    module's notes)."""
+    from tod_tpu_torch.runtime.frame_source import PacedSource, SyntheticSource
+    from tod_tpu_torch.runtime.multistream import MultiStreamEngine
+    from tod_tpu_torch.serve.server import PathStore
+
+    dev = resolve_device(device)
+    on_card = _on_card(dev)
+    cfg = _pipeline_cfg()
+    cam_fps = 30.0  # each feed is a 30 fps camera
+    sweep = tuple(sweep or ((4, 8, 16) if on_card else (2,)))
+    n_ticks = _count(n_ticks, dev, 20, 3)
+    k = _count(k, dev, 32, 2)
+    state = model_state(cfg.model)
+    table, ticks = [], []
+    for n_streams in sweep:
+        eng = MultiStreamEngine(cfg, n_streams=n_streams, params=state, device=dev)
+        sources = [PacedSource(SyntheticSource(cfg.camera, seed=7 + i, n_frames=None), fps=cam_fps)
+                   for i in range(n_streams)]
+        stores = [PathStore() for _ in range(n_streams)]
+        rtt0 = transport_rtt_ms(device=dev) if on_card else None
+        # paced feeds hold the tick rate at the camera clock: no bound needed
+        m = eng.run(sources, n_ticks=n_ticks, path_stores=stores, max_inflight=None)
+        offered = n_streams * cam_fps
+        packed0 = torch.zeros((n_streams, cfg.camera.height * cfg.camera.width * 5),
+                              dtype=torch.uint8, device=dev)
+        tick_s, _, _ = chained_step_s(eng._serve_plan_batch, packed0, k, dev)
+        ticks.append((eng, packed0))
+        table.append({
+            "n_streams": n_streams,
+            "offered_fps": offered,
+            "fresh_frames_per_s": round(m["fresh_frames_per_s"], 3),
+            "served_ratio": round(min(m["fresh_frames_per_s"] / offered, 1.0), 3),
+            "processed_frames_per_s": round(m["frames_per_s"], 3),
+            "ticks_per_s": round(m["ticks_per_s"], 3),
+            "tick_p50_ms": eng.timer.stats("tick").get("p50_ms"),
+            "plan_fanout_p50_ms": eng.timer.stats("latency").get("p50_ms"),
+            "plans_done": m["plans_done"],
+            "compile_s": round(m["compile_s"], 2),
+            "chained_tick_ms": round(tick_s * 1e3, 3),
+            "rtt_pair_ms": [rtt0, transport_rtt_ms(device=dev) if on_card else None],
+        })
+    # last: a profiler session slows the launches that follow it
+    for row, (eng, packed0) in zip(table, ticks):
+        tick_ms = busy_ms(eng._serve_plan_batch, packed0, dev)
+        row.update({
+            "device_tick_ms": tick_ms,
+            "device_ms_per_stream_frame": round(tick_ms / row["n_streams"], 4),
+            # the 30 fps streams one card covers at this batch's device time a frame
+            "chip_stream_ceiling_30fps": (int((1000.0 / cam_fps) / (tick_ms / row["n_streams"]))
+                                          if tick_ms > 0 else None),
+        })
+    best = max(table, key=lambda r: r["fresh_frames_per_s"])
+    return {
+        "metric": "fps_multistream_sweep_320x240",
+        # fresh camera frames planned a second (ticks x N would count held frames)
+        "value": best["fresh_frames_per_s"],
+        "unit": "frames/s",
+        "vs_baseline": round(best["fresh_frames_per_s"] / REF_FRAME_FPS, 3),
+        "camera_fps_each": cam_fps,
+        "sweep": table,
+        **_labels(dev),
+    }
+
+
+def _tracked_cfg(hw: tuple[int, int], obstacle_memory: float = 0.8) -> PipelineConfig:
+    return _pipeline_cfg(hw).replace(
+        planner=PlannerConfig(backend="tpu"),
+        tracker=TrackerConfig(enabled=True, obstacle_memory=obstacle_memory),
+    )
+
+
+def _plan_steps(eng) -> tuple[dict, torch.Tensor]:
+    """The three frame+plan steps of config 19 and an all-zero frame:
+    ``plain`` is ``serve_step_plan``, ``track`` the tracked step and
+    ``track_mem`` the tracked step with the obstacle memory, each on a bank
+    (and memory) that carries across calls."""
+    cam = eng.cfg.camera
+    packed0 = torch.zeros((cam.height * cam.width * 5,), dtype=torch.uint8, device=eng.device)
+    tracks, mem = eng._init_tracks(), eng._init_obstacle_mem()
+    return {
+        "plain": eng.serve_step_plan,
+        "track": lambda pk: eng.serve_step_track_plan(pk, tracks)[0],
+        "track_mem": lambda pk: eng.serve_step_track_plan_mem(pk, tracks, mem)[0],
+    }, packed0
+
+
+def config19_tracked_serving(device=None, k: int | None = None, n_frames: int | None = None,
+                             ms_k: int | None = None) -> dict:
+    """Config 19: what tracking costs a served frame: the chained
+    frame+plan step plain, tracked and tracked with the obstacle memory
+    (0.8) at 320x240 and 640x480 (48x64 on the CPU), ``k`` steps chained;
+    one latency-bounded point (2 in flight, a plan every 4th frame) of
+    ``n_frames`` with tracking and memory on; and on the card the batched
+    tick of 8 streams at 320x240, ``ms_k`` ticks chained, untracked and
+    tracked.  Each step and tick also gets its device busy ms (``busy_ms``,
+    taken last) and the deltas of those.  The value is the tracked+memory
+    step at 320x240."""
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.multistream import MultiStreamEngine
+
+    dev = resolve_device(device)
+    on_card = _on_card(dev)
+    k = _count(k, dev, 64, 2)
+    steps: dict = {}
+    profiled = []  # (row, field, step, input): busy times, taken last
+    eng = None
+    for hw in [(240, 320), (480, 640)] if on_card else [(48, 64)]:
+        cfg = _tracked_cfg(hw)
+        eng = Engine(cfg, model_state(cfg.model), device=dev)
+        eng.warmup()
+        variants, packed0 = _plan_steps(eng)
+        ms = {v: chained_step_s(fn, packed0, k, dev)[0] * 1e3 for v, fn in variants.items()}
+        row = steps[f"{hw[1]}x{hw[0]}"] = {
+            "plan_step_ms": round(ms["plain"], 3),
+            "track_step_ms": round(ms["track"], 3),
+            "track_mem_step_ms": round(ms["track_mem"], 3),
+            "track_delta_ms": round(ms["track"] - ms["plain"], 3),
+            "mem_delta_ms": round(ms["track_mem"] - ms["track"], 3),
+        }
+        profiled += [(row, f"{name}_busy_ms", variants[v], packed0)
+                     for v, name in (("plain", "plan_step"), ("track", "track_step"),
+                                     ("track_mem", "track_mem_step"))]
+
+    # a latency-bounded point with the whole tracked+memory stack on
+    cfg = _tracked_cfg((240, 320) if on_card else (48, 64))
+    eng = Engine(cfg, model_state(cfg.model), device=dev)
+    eng.warmup()
+    point = _bounded_point(eng, 2, _count(n_frames, dev, 150, 4))
+
+    multistream_tracked = None
+    if on_card:
+        n_streams, hw = 8, (240, 320)
+        ms = MultiStreamEngine(_tracked_cfg(hw, 0.0), n_streams=n_streams,
+                               params=model_state(cfg.model), device=dev)
+        packed0 = torch.zeros((n_streams, hw[0] * hw[1] * 5), dtype=torch.uint8, device=dev)
+        kk = ms_k or 32
+        banks = ms._init_track_bank()
+        tracked_tick = lambda pk: ms._serve_plan_batch_track(pk, banks)[0]  # noqa: E731
+        untracked_ms = chained_step_s(ms._serve_plan_batch, packed0, kk, dev)[0] * 1e3
+        tracked_ms = chained_step_s(tracked_tick, packed0, kk, dev)[0] * 1e3
+        multistream_tracked = {
+            "n_streams": n_streams,
+            "tick_ms": round(untracked_ms, 3),
+            "tick_tracked_ms": round(tracked_ms, 3),
+            "tracked_delta_ms": round(tracked_ms - untracked_ms, 3),
+        }
+        profiled += [(multistream_tracked, "tick_busy_ms", ms._serve_plan_batch, packed0),
+                     (multistream_tracked, "tick_tracked_busy_ms", tracked_tick, packed0)]
+
+    # last: a profiler session slows the launches that follow it
+    for row, field, fn, x0 in profiled:
+        row[field] = busy_ms(fn, x0, dev)
+    for row in steps.values():
+        row["track_delta_busy_ms"] = round(row["track_step_busy_ms"]
+                                           - row["plan_step_busy_ms"], 4)
+        row["mem_delta_busy_ms"] = round(row["track_mem_step_busy_ms"]
+                                         - row["track_step_busy_ms"], 4)
+    if multistream_tracked is not None:
+        multistream_tracked["tracked_delta_busy_ms"] = round(
+            multistream_tracked["tick_tracked_busy_ms"] - multistream_tracked["tick_busy_ms"], 4)
+
+    qvga = steps.get("320x240") or next(iter(steps.values()))
+    return {
+        "metric": "tracked_serving_step_delta_ms",
+        "value": qvga["track_mem_step_ms"],
+        "unit": "ms/frame (tracked+memory fused step)",
+        "vs_baseline": (round(REF_TILE_MS * 2 / qvga["track_mem_step_ms"], 2)
+                        if qvga["track_mem_step_ms"] else None),
+        "steps": steps,
+        "bounded_point_tracked": point,
+        "multistream_tracked": multistream_tracked,
+        "warmup_breakdown": eng.warmup_breakdown,
+        **_labels(dev),
+    }
+
+
 # config -> (what it measures, the ROADMAP.md item it waits for)
 UNPORTED = {
     1: ("single frame on the reference fixture data/frc_balls.png",
@@ -555,10 +779,8 @@ UNPORTED = {
     13: ("static-int8 batch throughput", "B, M12: int8 inference"),
     15: ("throughput by backbone (MobileNetV2, ResNet18, ResNet50)",
          "B, M13: ResNet backbones"),
-    16: ("multi-stream serving", "B, M11: multistream"),
     18: ("pipeline-parallel serving against the fused graph",
          "B, M16: pipeline-parallel serving"),
-    19: ("tracked serving step deltas", "B, M10: tracking"),
 }
 
 
@@ -585,7 +807,9 @@ CONFIGS = {
     7: config7_batch_throughput_mfu,
     8: config8_latency_bounded_serving,
     14: config14_batch_scaling,
+    16: config16_multistream_serving,
     17: config17_latency_bounded_vga,
+    19: config19_tracked_serving,
     **{n: _unported(n) for n in UNPORTED},
 }
 CONFIGS = dict(sorted(CONFIGS.items()))

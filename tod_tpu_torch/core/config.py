@@ -3,8 +3,8 @@
 A copy of the dataclasses in the JAX package's ``core/config.py`` that the port's main
 path reads, with the same defaults: camera 640x480, the ``yolact_mnv2_fpn``
 model at a 256x320 input in bfloat16, the fusion constants of the reference
-shaders and the planner's backends and limits.  Fields of features the port
-does not run yet (int8, tracking, training) arrive with them.
+shaders, the planner's backends and limits, and the ball tracker.  Fields of
+features the port does not run yet (int8, training) arrive with them.
 """
 
 from __future__ import annotations
@@ -107,6 +107,39 @@ class PlannerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    """Temporal ball tracking (``tod_tpu_torch/track``): a bank of
+    constant-velocity Kalman tracks over the fusion ball centroids, updated
+    once a planning frame; the planner seeds from the confirmed tracks in
+    place of the raw centroids.  Units are birdseye grid cells, velocities
+    cells per update.  Off by default: the plain path plans from the
+    centroids.
+    """
+
+    enabled: bool = False
+    max_tracks: int = 8
+    # association gate: the largest predicted-position to measurement
+    # distance (cells)
+    gate: float = 30.0
+    # updates without a measurement before a track dies; measured updates
+    # before it is confirmed (only confirmed tracks seed the planner)
+    max_misses: int = 8
+    min_hits: int = 2
+    # white-acceleration process variance (cells^2 / update^2), centroid
+    # measurement variance (cells^2), a newborn track's velocity variance
+    accel_var: float = 1.0
+    meas_var: float = 4.0
+    vel0_var: float = 25.0
+    # a measurement counts when its centroid has more pixels than this
+    min_pixels: float = 3.0
+    # Decaying obstacle memory: the planner's height is
+    # max(fresh occupancy, decay^k x the remembered robot bumps), so a robot
+    # whose detection flickers off keeps repelling the path for a few
+    # planning frames.  0 disables; needs ``enabled``.
+    obstacle_memory: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """TCP control plane.  The defaults are plaintext, unauthenticated and
     loopback-only; the rest is opt-in hardening:
@@ -136,6 +169,7 @@ class PipelineConfig:
     geometry: GeometryConfig = dataclasses.field(default_factory=GeometryConfig)
     planner: PlannerConfig = dataclasses.field(default_factory=PlannerConfig)
     server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
+    tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
@@ -159,4 +193,22 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append("planner.max_seed_balls must be >= 1")
     if cfg.planner.start_offset < 1:
         problems.append("planner.start_offset must be >= 1 (column w-offset)")
+    tcfg = cfg.tracker
+    if tcfg.enabled:
+        if tcfg.max_tracks > cfg.geometry.max_balls:
+            problems.append(
+                "tracker.max_tracks exceeds geometry.max_balls (the track "
+                "seeds are emitted in the ball-slot format)"
+            )
+        if tcfg.min_hits < 1 or tcfg.max_misses < 0:
+            problems.append("tracker.min_hits must be >= 1, max_misses >= 0")
+    if not (0.0 <= tcfg.obstacle_memory < 1.0):
+        problems.append(
+            "tracker.obstacle_memory must be in [0, 1) (a per-dispatch decay)"
+        )
+    if tcfg.obstacle_memory > 0.0 and not tcfg.enabled:
+        problems.append(
+            "tracker.obstacle_memory requires tracker.enabled (the memory "
+            "lives in the tracked serving graph's HBM state)"
+        )
     return problems

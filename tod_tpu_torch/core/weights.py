@@ -10,6 +10,9 @@ from HWIO to OIHW; a depthwise kernel ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)``
 by the same transpose.  Every leaf must be consumed and every state entry
 filled with the right shape, or the carry-across raises.
 
+``carry_state`` carries the serving state across too: a track bank and an
+obstacle memory of the JAX package's tracked steps.
+
 ``load_pinned`` reads ``tod_tpu_torch/weights/yolact_dr.npz``: the same tree,
 written once from the JAX checkpoint and committed, so that the port needs
 neither orbax nor msgpack.  ``load_checkpoint`` reads any other checkpoint
@@ -121,3 +124,21 @@ def load_pinned(path: str | pathlib.Path = PINNED, cfg=None) -> dict[str, torch.
     from tod_tpu_torch.models.yolact import Yolact
 
     return carry_across(read_tree(path), Yolact(cfg or ModelConfig()))
+
+
+def carry_state(tracks: np.ndarray | None = None, memory: np.ndarray | None = None,
+                device="cpu") -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The JAX package's serving state as the port's tensors on ``device``:
+    a track bank (numpy ``(K, 10)``, or ``(N, K, 10)`` for the multistream
+    banks) and an obstacle memory (numpy ``(H, W)``), each float32 and
+    contiguous, copied (the engine updates them in place); None stays None."""
+    def carry(a):
+        if a is None:
+            return None
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+
+    if tracks is not None and (np.ndim(tracks) not in (2, 3) or np.shape(tracks)[-1] != 10):
+        raise ValueError(f"a track bank is (K, 10) or (N, K, 10), got {np.shape(tracks)}")
+    if memory is not None and np.ndim(memory) != 2:
+        raise ValueError(f"an obstacle memory is (H, W), got {np.shape(memory)}")
+    return carry(tracks), carry(memory)

@@ -127,10 +127,9 @@ def robot_occupancy(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
     return torch.where(_border_interior(h, w, depth_mm.device), robots, 0.0)
 
 
-def occupancy_map(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
-    """(H, W) f32 height map: terrain pixels (class 0) bump their own image
-    row with radius ``terrain_norm_const``; robots (classes 1, 2) bump
-    ``bot_avoidance_const`` with radius ``bot_norm_const``; balls write none."""
+def _layers(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
+    """(terrain, robots, interior): the two bump layers of the occupancy map
+    before the border mask, and the mask."""
     h, w = depth_mm.shape
     dev = depth_mm.device
     bird_y, _, _ = birdseye_project(depth_mm, cam)
@@ -150,7 +149,24 @@ def occupancy_map(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
         _robot_peaks(bird_y, cls_map, geom), geom.bot_norm_const,
         geom.bot_avoidance_const, geom.bump_err, (h, w),
     )
-    return torch.where(_border_interior(h, w, dev), torch.maximum(terrain, robots), 0.0)
+    return terrain, robots, _border_interior(h, w, dev)
+
+
+def occupancy_map(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
+    """(H, W) f32 height map: terrain pixels (class 0) bump their own image
+    row with radius ``terrain_norm_const``; robots (classes 1, 2) bump
+    ``bot_avoidance_const`` with radius ``bot_norm_const``; balls write none."""
+    terrain, robots, interior = _layers(depth_mm, cls_map, cam, geom)
+    return torch.where(interior, torch.maximum(terrain, robots), 0.0)
+
+
+def occupancy_layers(depth_mm, cls_map, cam: CameraConfig, geom: GeometryConfig):
+    """``(occupancy_map, robot_occupancy)`` of one frame, with the projection
+    and the robot dilation done once (the obstacle memory's step needs
+    both; compiled JAX shares them by common subexpressions)."""
+    terrain, robots, interior = _layers(depth_mm, cls_map, cam, geom)
+    return (torch.where(interior, torch.maximum(terrain, robots), 0.0),
+            torch.where(interior, robots, 0.0))
 
 
 def ball_centroids(depth_mm, cls_map, id_map, cam: CameraConfig, geom: GeometryConfig):

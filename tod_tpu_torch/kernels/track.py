@@ -1,0 +1,85 @@
+"""The tracker kernel: one step of N Kalman track banks and their seed slots
+in one launch.
+
+Counterpart of the JAX package's ``track/tracker.py`` (``track_update``
+then ``tracks_to_balls``), an XLA loop inside the jitted serving graph.  On
+a CUDA tensor the wrapper launches ``csrc/track.cu``, one block a bank; on a
+CPU tensor it runs the plain version, ``track/tracker.py``'s torch
+functions.  Either way the bank is updated in place (the JAX graph donates
+it) and nothing is read back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tod_tpu_torch.core.config import TrackerConfig
+from tod_tpu_torch.kernels import _build
+from tod_tpu_torch.kernels._build import SMEM_LIMIT
+from tod_tpu_torch.track.tracker import STATE_WIDTH, track_update, tracks_to_balls
+
+SOURCE = "track"
+SIGNATURES = {
+    "tod_track": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9
+                  + [ctypes.c_void_p], ctypes.c_int),
+}
+MAX_TRACKS = 32  # csrc/track.cu's kMaxTracks: a bank's rows live in shared memory
+
+
+def plain_track_banks(tracks: torch.Tensor, balls: torch.Tensor, cfg: TrackerConfig,
+                      max_balls: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version -> (new banks, seed slots), new tensors."""
+    new = track_update(tracks, balls, cfg)
+    return new, tracks_to_balls(new, cfg, max_balls)
+
+
+def track_banks(tracks: torch.Tensor, balls: torch.Tensor, cfg: TrackerConfig,
+                max_balls: int) -> torch.Tensor:
+    """One tracker step of every bank.
+
+    ``tracks``: ``(N, K, 10)`` (or one ``(K, 10)`` bank) contiguous f32,
+    updated in place; ``balls``: the ``(N, M, 4)`` (or ``(M, 4)``) fusion
+    centroid slots, f32 on the same device -> the ``(N, max_balls, 4)`` (or
+    ``(max_balls, 4)``) seed slots of the new banks.  Raises before any
+    launch when ``max_balls`` is below ``K``.
+    """
+    single = tracks.dim() == 2
+    if single:
+        tracks, balls = tracks[None], balls[None]
+    if tracks.dim() != 3 or tracks.shape[2] != STATE_WIDTH or balls.dim() != 3 \
+            or balls.shape[0] != tracks.shape[0] or balls.shape[2] != 4:
+        raise ValueError(f"expected banks (N, K, {STATE_WIDTH}) and balls (N, M, 4), got "
+                         f"{tuple(tracks.shape)} and {tuple(balls.shape)}")
+    for name, t in (("tracks", tracks), ("balls", balls)):
+        if t.device != tracks.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {tracks.device}")
+    n, k, _ = tracks.shape
+    m = balls.shape[1]
+    if max_balls < k:
+        raise ValueError(f"max_balls ({max_balls}) < max_tracks ({k})")
+    if tracks.device.type == "cpu":
+        new, seeds = plain_track_banks(tracks, balls, cfg, max_balls)
+        tracks.copy_(new)
+        return seeds[0] if single else seeds
+    if tracks.device.type != "cuda":
+        raise ValueError(f"unsupported device {tracks.device}")
+    if not 1 <= k <= MAX_TRACKS or m < 1 or 4 * k * m + m > SMEM_LIMIT:
+        raise ValueError(f"K={k} tracks and M={m} balls: the kernel takes 1 <= K <= "
+                         f"{MAX_TRACKS} and a K x M cost matrix within {SMEM_LIMIT} bytes")
+    seeds = torch.empty((n, max_balls, 4), dtype=torch.float32, device=tracks.device)
+    q = cfg.accel_var
+    lib = _build.load(SOURCE, SIGNATURES)
+    with torch.cuda.device(tracks.device):
+        err = lib.tod_track(
+            tracks.data_ptr(), balls.data_ptr(), seeds.data_ptr(), n, k, m, max_balls,
+            q * 0.25, q * 0.5, q, cfg.gate**2, cfg.meas_var, cfg.vel0_var, cfg.min_pixels,
+            float(cfg.max_misses), float(cfg.min_hits), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "track launch")
+    track_banks.launches += 1
+    return seeds[0] if single else seeds
+
+
+track_banks.launches = 0

@@ -4,7 +4,8 @@ the JAX package's ``models/yolact.py``).
 ``Yolact.forward`` takes NHWC images, as the JAX model does, and returns raw
 head outputs; :func:`detect` turns them into fixed-shape ``Detections``: box
 decode, softmax, Fast-NMS, mask assembly with the box crop (kernel K1), and
-the per-pixel class and dense ball-id maps.
+the per-pixel class and dense ball-id maps.  :func:`detect_batch` does so
+for every sample of a batch, with one K1 launch for the batch.
 """
 
 from __future__ import annotations
@@ -73,10 +74,10 @@ class Yolact(nn.Module):
         )
 
 
-def _detect_sample(loc, conf_logits, coeff_all, protos, cfg: ModelConfig,
-                   anchors: torch.Tensor, out_hw: tuple[int, int]) -> Detections:
-    """Per-sample cleanup: loc (A, 4), conf_logits (A, C), coeff_all (A, K),
-    protos (Hm, Wm, K)."""
+def _nms_sample(loc, conf_logits, coeff_all, cfg: ModelConfig, anchors: torch.Tensor):
+    """Per-sample box decode, softmax and Fast-NMS: loc (A, 4), conf_logits
+    (A, C), coeff_all (A, K) -> (boxes, scores, classes, valid, the kept
+    anchors' coefficients (N, K) f32)."""
     conf = torch.softmax(conf_logits, dim=-1)
     boxes_all = decode_boxes(loc, anchors)
     boxes, scores, classes, keep_idx, valid = fast_nms(
@@ -88,9 +89,13 @@ def _detect_sample(loc, conf_logits, coeff_all, protos, cfg: ModelConfig,
     )
     # gather first, tanh after: only the kept anchors need the nonlinearity
     coeffs = torch.tanh(coeff_all[keep_idx].float())
-    masks = assemble_crop_masks(
-        protos[None].float().contiguous(), coeffs[None].contiguous(), boxes[None].contiguous()
-    )[0]
+    return boxes, scores, classes, valid, coeffs
+
+
+def _maps_sample(boxes, scores, classes, valid, masks, cfg: ModelConfig,
+                 out_hw: tuple[int, int]) -> Detections:
+    """One sample's assembled masks (N, Hm, Wm) -> Detections with the class
+    map and the dense ball-id map."""
     masks = masks * valid[:, None, None]
     class_map, id_map = masks_to_class_map(
         masks, classes, valid, out_hw, threshold=cfg.mask_threshold
@@ -107,10 +112,31 @@ def _detect_sample(loc, conf_logits, coeff_all, protos, cfg: ModelConfig,
     )
 
 
+def detect_batch(outputs: YolactOutputs, cfg: ModelConfig, anchors: torch.Tensor,
+                 out_hw: tuple[int, int] | None = None) -> Detections:
+    """Head outputs of a batch -> Detections whose every field has a leading
+    batch axis.  The cleanup runs per sample, as the JAX package's vmap of
+    its per-sample core does, except the mask assembly: kernel K1 takes the
+    whole batch in one launch."""
+    out_hw = out_hw or cfg.input_size
+    picked = [_nms_sample(loc, conf, coeff, cfg, anchors) for loc, conf, coeff in
+              zip(outputs.loc, outputs.conf, outputs.coeff)]
+    boxes, scores, classes, valid, coeffs = (torch.stack(f) for f in zip(*picked))
+    masks = assemble_crop_masks(outputs.prototypes.float().contiguous(),
+                                coeffs.contiguous(), boxes.contiguous())
+    per = [_maps_sample(*fields, cfg, out_hw)
+           for fields in zip(boxes, scores, classes, valid, masks)]
+    return Detections(**{f.name: torch.stack([getattr(d, f.name) for d in per])
+                         for f in dataclasses.fields(Detections)})
+
+
 def detect(outputs: YolactOutputs, cfg: ModelConfig, anchors: torch.Tensor,
            out_hw: tuple[int, int] | None = None) -> Detections:
     """Head outputs -> Detections for batch element 0."""
-    return _detect_sample(
-        outputs.loc[0], outputs.conf[0], outputs.coeff[0], outputs.prototypes[0],
-        cfg, anchors, out_hw or cfg.input_size,
-    )
+    boxes, scores, classes, valid, coeffs = _nms_sample(
+        outputs.loc[0], outputs.conf[0], outputs.coeff[0], cfg, anchors)
+    masks = assemble_crop_masks(
+        outputs.prototypes[0][None].float().contiguous(), coeffs[None].contiguous(),
+        boxes[None].contiguous(),
+    )[0]
+    return _maps_sample(boxes, scores, classes, valid, masks, cfg, out_hw or cfg.input_size)

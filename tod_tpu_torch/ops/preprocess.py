@@ -1,5 +1,7 @@
 """Preprocessing and the packed-frame unpack (counterpart of
-the JAX package's ``ops/preprocess.py`` and the unpack in ``runtime/engine.py``)."""
+the JAX package's ``ops/preprocess.py`` and the unpacks in ``runtime/engine.py``
+and ``runtime/multistream.py``).  ``resize_triangle`` and ``normalize`` take
+any leading batch axes."""
 
 from __future__ import annotations
 
@@ -27,6 +29,21 @@ def unpack_frame(packed: torch.Tensor, hw: tuple[int, int]):
     pairs = packed[n_rgb:].reshape(h, w, 2).to(torch.int32)
     depth = pairs[..., 0] | (pairs[..., 1] << 8)
     return rgb, depth
+
+
+def unpack_frames(packed: torch.Tensor, hw: tuple[int, int]):
+    """Batched :func:`unpack_frame`: (N, H*W*5) uint8 -> (rgb (N, H, W, 3)
+    uint8, depth (N, H, W) int32 mm)."""
+    h, w = hw
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or packed.shape[1] != h * w * 5:
+        raise ValueError(
+            f"packed frames must be (N, {h * w * 5}) uint8, got "
+            f"{tuple(packed.shape)} {packed.dtype}"
+        )
+    n = packed.shape[0]
+    rgb = packed[:, : h * w * 3].reshape(n, h, w, 3)
+    pairs = packed[:, h * w * 3 :].reshape(n, h, w, 2).to(torch.int32)
+    return rgb, pairs[..., 0] | (pairs[..., 1] << 8)
 
 
 def pack_frame(rgb, depth) -> np.ndarray:

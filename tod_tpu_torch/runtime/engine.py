@@ -17,6 +17,15 @@ kernel, the path walk kernel).
 The JAX graph dead-codes the scene's connection/pos maps that nothing reads;
 here they are simply not computed on this path.
 
+With ``TrackerConfig.enabled`` (the device planner only) a planning frame
+runs ``serve_step_track_plan``: the tracker kernel (``kernels/track.py``)
+updates the ``(max_tracks, 10)`` bank in place on the device and the planner
+seeds from its confirmed tracks; with ``obstacle_memory`` > 0,
+``serve_step_track_plan_mem`` also keeps a decayed maximum of the robot
+bumps on the device, and the planner's height is the larger of it and the
+fresh map.  ``run`` starts a fresh bank and memory each run; nothing of
+either is read back.
+
 ``run`` streams a frame source through it in one of the JAX package's two
 modes, chosen by ``PlannerConfig.backend`` as the JAX package chooses:
 ``tpu``, or ``auto`` on the card, is the device-planner mode (every
@@ -51,7 +60,13 @@ from tod_tpu_torch.core.config import PipelineConfig, validate
 from tod_tpu_torch.core.device import resolve_device
 from tod_tpu_torch.core.types import Detections, Frame, Path, Scene
 from tod_tpu_torch.core.weights import check_state, load_pinned
-from tod_tpu_torch.geometry.fusion import ball_centroids, fuse_scene, occupancy_map
+from tod_tpu_torch.geometry.fusion import (
+    ball_centroids,
+    fuse_scene,
+    occupancy_layers,
+    occupancy_map,
+)
+from tod_tpu_torch.kernels.track import track_banks
 from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
 from tod_tpu_torch.ops.cc_labels import connected_components
@@ -67,9 +82,25 @@ from tod_tpu_torch.planner.api import host_backend, materialize_path, plan_from_
 from tod_tpu_torch.planner.dijkstra import start_node_yx
 from tod_tpu_torch.planner.relax import plan_on_device
 from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
+from tod_tpu_torch.track.tracker import init_tracks
 
 
 MODES = ("detect", "semantic")
+
+
+def serving_model(cfg: PipelineConfig, params: Mapping[str, torch.Tensor] | None,
+                  device: torch.device) -> tuple[Yolact, torch.dtype, torch.Tensor]:
+    """``(model, compute dtype, anchors)`` of ``cfg.model`` on ``device``,
+    loaded from the state dict ``params`` (the pinned weights when None);
+    shared by :class:`Engine` and the multistream engine."""
+    mcfg = cfg.model
+    dtype = getattr(torch, mcfg.dtype)
+    model = Yolact(mcfg)
+    state = load_pinned(cfg=mcfg) if params is None else params
+    check_state(model, state)
+    model.load_state_dict(state)
+    model.to(device=device, dtype=dtype).eval()
+    return model, dtype, torch.from_numpy(generate_anchors(mcfg)).to(device)
 
 
 class Engine:
@@ -97,14 +128,7 @@ class Engine:
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.device = resolve_device(device)
-        mcfg = self.cfg.model
-        self.dtype = getattr(torch, mcfg.dtype)
-        self.model = Yolact(mcfg)
-        state = load_pinned(cfg=mcfg) if params is None else params
-        check_state(self.model, state)
-        self.model.load_state_dict(state)
-        self.model.to(device=self.device, dtype=self.dtype).eval()
-        self.anchors = torch.from_numpy(generate_anchors(mcfg)).to(self.device)
+        self.model, self.dtype, self.anchors = serving_model(self.cfg, params, self.device)
         cam = self.cfg.camera
         self.cam_hw = (cam.height, cam.width)
         self.start_yx = start_node_yx(self.cam_hw, offset=self.cfg.planner.start_offset)
@@ -112,6 +136,18 @@ class Engine:
         backend = self.cfg.planner.backend
         self._plan_on_device_mode = backend == "tpu" or (
             backend == "auto" and self.device.type == "cuda")
+        tkcfg = self.cfg.tracker
+        if tkcfg.enabled and not self._plan_on_device_mode:
+            raise ValueError(
+                "tracker.enabled requires the device planner (the track bank "
+                "lives on the device inside the frame+plan step) - set "
+                "planner.backend='tpu'"
+            )
+        self._obstacle_mem_mode = tkcfg.enabled and tkcfg.obstacle_memory > 0.0
+        self._decay = torch.full((), tkcfg.obstacle_memory, dtype=torch.float32,
+                                 device=self.device)
+        self._tracks_d: torch.Tensor | None = None  # a run's bank (tracker mode)
+        self._mem_d: torch.Tensor | None = None  # a run's obstacle memory
         self._sweeps: torch.Tensor | None = None
         self.timer = StageTimer()
         self.fps = FPSMeter()
@@ -204,6 +240,48 @@ class Engine:
         )
         return plan
 
+    def _init_tracks(self) -> torch.Tensor:
+        """An all-inactive ``(max_tracks, 10)`` bank on the device."""
+        return init_tracks(self.cfg.tracker, device=self.device)
+
+    def _init_obstacle_mem(self) -> torch.Tensor:
+        """An empty ``(H, W)`` f32 obstacle memory on the device."""
+        return torch.zeros(self.cam_hw, dtype=torch.float32, device=self.device)
+
+    def _track(self, tracks: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
+        """The tracker kernel on one bank, in place -> the seed slots."""
+        with record_function("stage/track"):
+            return track_banks(tracks, balls, self.cfg.tracker, self.cfg.geometry.max_balls)
+
+    @torch.inference_mode()
+    def serve_step_track_plan(self, packed: torch.Tensor, tracks: torch.Tensor):
+        """Packed frame and ``(max_tracks, 10)`` bank -> ``(plan, bank)``: the
+        tracker kernel updates the bank in place (the same tensor comes back)
+        and the planner seeds from its confirmed tracks.  Reads nothing
+        back."""
+        if not self.cfg.tracker.enabled:
+            raise ValueError("the tracked steps need tracker.enabled")
+        height, balls = self.serve_step_scene(packed)
+        return self.plan_scene(height, self._track(tracks, balls)), tracks
+
+    @torch.inference_mode()
+    def serve_step_track_plan_mem(self, packed: torch.Tensor, tracks: torch.Tensor,
+                                  mem: torch.Tensor):
+        """:meth:`serve_step_track_plan` with the obstacle memory ->
+        ``(plan, bank, memory)``: ``mem = max(robots, mem * decay)`` in place,
+        with ``robots`` the frame's robot bump layer and ``decay`` the f32 of
+        ``obstacle_memory``, and the planner's height ``max(height, mem)``."""
+        if not self._obstacle_mem_mode:
+            raise ValueError("the memory step needs tracker.obstacle_memory > 0")
+        depth, dets = self._step(packed)
+        with record_function("stage/fusion"):
+            cam, geom = self.cfg.camera, self.cfg.geometry
+            height, robots = occupancy_layers(depth, dets.class_map, cam, geom)
+            balls = ball_centroids(depth, dets.class_map, dets.id_map, cam, geom)
+            torch.maximum(robots, mem * self._decay, out=mem)
+            height = torch.maximum(height, mem)
+        return self.plan_scene(height, self._track(tracks, balls)), tracks, mem
+
     def _packed_zeros(self) -> torch.Tensor:
         h, w = self.cam_hw
         return torch.zeros(h * w * 5, dtype=torch.uint8,
@@ -219,6 +297,13 @@ class Engine:
         if self._plan_on_device_mode:
             steps = (("serve_step_scene", self.serve_step_scene),
                      ("serve_step_plan", self.serve_step_plan))
+            # the tracked step on a throwaway bank (a run starts its own)
+            if self._obstacle_mem_mode:
+                steps += (("serve_step_track_plan_mem", lambda p: self.serve_step_track_plan_mem(
+                    p, self._init_tracks(), self._init_obstacle_mem())),)
+            elif self.cfg.tracker.enabled:
+                steps += (("serve_step_track_plan", lambda p: self.serve_step_track_plan(
+                    p, self._init_tracks())),)
         else:
             steps = (("serve_step_packed", self.serve_step_packed),
                      ("host_planner", lambda _: host_backend(self.cfg.planner.backend)))
@@ -231,21 +316,13 @@ class Engine:
         self.warmup_breakdown = breakdown
         return time.perf_counter() - t_total
 
-    def _readback(self, plan: torch.Tensor):
-        """Start the plan's copy to host: ``(host tensor, done event or None)``."""
-        if self.device.type != "cuda":
-            return plan, None
-        host = torch.empty(plan.shape, dtype=plan.dtype, pin_memory=True)
-        host.copy_(plan, non_blocking=True)
-        return host, _record_event()
-
     def _plan_payload(self, out):
         """What the planner thread gets for the output of a step: the device
         plan's readback, or in the host-planner mode the readback of the
         packed height and balls."""
         if self._plan_on_device_mode:
-            return self._readback(self.plan_scene(*out))
-        return self._readback(out)
+            return _readback(self.plan_scene(*out))
+        return _readback(out)
 
     def run(
         self,
@@ -269,8 +346,16 @@ class Engine:
         only (drop-old).  The ``frame`` stage is the batch mean between
         syncs, ``latency`` a sampled dispatch-to-done time, ``plan`` the
         planner thread's wait and decode, and ``dispatch_plan`` /
-        ``dispatch_scene`` the loop thread's time in each step.
+        ``dispatch_scene`` the loop thread's time in each step.  With the
+        tracker a planning frame runs the tracked step on a bank (and
+        memory) made fresh for this run, and ``plan_every`` is required.
         """
+        tracked = self.cfg.tracker.enabled and plan_paths
+        if tracked and plan_every is None:
+            raise ValueError(
+                "tracker.enabled plans in-stream: pass plan_every "
+                "(the tracker steps once per planning dispatch)"
+            )
         compile_s = self.warmup() if warmup else 0.0
         if watchdog is not None:
             watchdog.heartbeat()  # set-up is not a stall
@@ -278,6 +363,14 @@ class Engine:
         uploader = _UploadWorker(source, n_frames, pin=self.device.type == "cuda")
         serve_fn = self.serve_step_scene if self._plan_on_device_mode else self.serve_step_packed
         plan_fn = self.serve_step_plan if self._plan_on_device_mode else self.serve_step_packed
+        if tracked:
+            self._tracks_d = self._init_tracks()  # a fresh bank each run
+            if self._obstacle_mem_mode:
+                self._mem_d = self._init_obstacle_mem()
+                plan_fn = lambda p: self.serve_step_track_plan_mem(  # noqa: E731
+                    p, self._tracks_d, self._mem_d)[0]
+            else:
+                plan_fn = lambda p: self.serve_step_track_plan(p, self._tracks_d)[0]  # noqa: E731
         sampler = _LatencySampler(self.timer)
         inflight: deque = deque()
         n_done = batch_n = 0
@@ -297,7 +390,7 @@ class Engine:
             if plan_frame:
                 with self.timer.stage("dispatch_plan"):
                     out = plan_fn(item)
-                planner.submit(self._readback(out))
+                planner.submit(_readback(out))
             else:
                 with self.timer.stage("dispatch_scene"):
                     out = serve_fn(item)
@@ -420,6 +513,16 @@ def _call_quietly(fn) -> None:
         fn()
     except Exception:
         pass
+
+
+def _readback(out: torch.Tensor):
+    """Start a device tensor's copy to the host: ``(host tensor, done event)``;
+    a CPU tensor is its own copy, with no event."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    return host, _record_event()
 
 
 def _record_event() -> torch.cuda.Event:

@@ -16,8 +16,10 @@ Wire protocol:
   and a wrong token drops the connection; with auth off it is a no-op, so a
   client configured with a token works against a server without one
 - ``GetPthN`` / ``NewPthN`` + u32 big-endian stream index -> the multistream
-  commands; this server has no per-stream stores yet, so each is counted as
-  an error and the connection dropped
+  commands, on the server's ``stream_stores`` (one a camera stream):
+  ``GetPthN`` answers that stream's path with ``GetPth2``'s framing,
+  ``NewPthN`` resets it and answers ``OK``.  Without stores, or for an index
+  out of range, each is counted as an error and the connection dropped
 - anything else -> logged, connection dropped
 
 With ``ServerConfig.tls_cert`` the server speaks TLS, and with
@@ -65,10 +67,15 @@ class PathStore:
 
 class PathServer:
     """``stats_fn`` (optional) returns live pipeline metrics, merged into the
-    ``GetStat`` reply."""
+    ``GetStat`` reply.  ``stream_stores`` (optional) are the multistream
+    engine's per-stream stores, addressed by ``GetPthN``/``NewPthN`` and
+    listed under ``streams`` in ``GetStat``; the single-store commands keep
+    serving ``store`` (stream 0's, by convention)."""
 
-    def __init__(self, store: PathStore, cfg: ServerConfig | None = None, stats_fn=None) -> None:
+    def __init__(self, store: PathStore, cfg: ServerConfig | None = None, stats_fn=None,
+                 stream_stores: list[PathStore] | None = None) -> None:
         self.store = store
+        self.stream_stores = stream_stores
         self.cfg = cfg or ServerConfig()
         self.stats_fn = stats_fn
         self._started = time.time()
@@ -119,13 +126,24 @@ class PathServer:
                     log.error("unauthenticated %r from %s; dropping", buf, peer)
                     return
                 elif buf in (b"GetPthN", b"NewPthN"):
+                    cmd = buf.decode()
                     try:
                         idx = int.from_bytes(await reader.readexactly(4), "big")
                     except asyncio.IncompleteReadError:
                         return
-                    self.counters["errors"] += 1
-                    log.error("RequestError(%s stream %d of none)", buf.decode(), idx)
-                    return
+                    stores = self.stream_stores
+                    if stores is None or not 0 <= idx < len(stores):
+                        self.counters["errors"] += 1
+                        log.error("RequestError(%s stream %d of %s)", cmd, idx,
+                                  "none" if stores is None else len(stores))
+                        return
+                    self.counters[cmd] += 1
+                    if cmd == "NewPthN":
+                        stores[idx].reset()
+                        await self._reply(writer, b"OK")
+                    else:
+                        payload = stores[idx].get().serialize()
+                        await self._reply(writer, len(payload).to_bytes(4, "big") + payload)
                 elif buf == b"NewPath":
                     self.counters["NewPath"] += 1
                     self.store.reset()
@@ -164,6 +182,12 @@ class PathServer:
             "path_len": len(path.directions),
             "path_truncated": bool(path.truncated),
         }
+        if self.stream_stores is not None:
+            out["streams"] = [
+                {"path_age_s": time.time() - p.created, "path_len": len(p.directions),
+                 "path_truncated": bool(p.truncated)}
+                for p in (s.get() for s in self.stream_stores)
+            ]
         if self.stats_fn is not None:
             try:
                 out["pipeline"] = self.stats_fn()
@@ -204,10 +228,11 @@ class PathServer:
             self._server = None
 
 
-def run_in_thread(store: PathStore, cfg: ServerConfig | None = None, stats_fn=None):
+def run_in_thread(store: PathStore, cfg: ServerConfig | None = None, stats_fn=None,
+                  stream_stores: list[PathStore] | None = None):
     """Start the server on a daemon thread with its own event loop; returns
     ``(thread, server)`` or raises if it fails to start within 10 s."""
-    server = PathServer(store, cfg, stats_fn=stats_fn)
+    server = PathServer(store, cfg, stats_fn=stats_fn, stream_stores=stream_stores)
     ready = threading.Event()
     holder: dict = {}
 
