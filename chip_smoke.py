@@ -15,7 +15,9 @@ Phases, each printed as it ends:
    for bit at 64x64 and below, and at 480x640 and 479x641 against
    ``scipy.ndimage.label``; the tracker bit for bit on random banks at
    N = 1, 4 and 16 and over a 64-step sequence of 4 banks with births,
-   deaths, coasting and contended gates), and its device time (CUDA
+   deaths, coasting and contended gates; the int8 convolution bit for bit
+   at every distinct conv site of the 256x320 forward at batch 1 and 16, in
+   bf16 and f32, with per-sample scales, and past 2^24), and its device time (CUDA
    events, median of 50 calls after a warm-up, enqueued behind a sleep
    kernel) beside the plain version's and a library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
@@ -52,8 +54,8 @@ Phases, each printed as it ends:
 12. the bench (``tod_tpu_torch.bench``): ``fuse_scene_batch`` at batch 8
    on the card exactly equal to ``fuse_scene`` frame by frame (K4 and K2
    once a map) and at batch 2 to the CPU; then, with the serve path's
-   launch counts reset before and read after, configs 2, 3, 4, 7, 14, 16
-   and 19 and the headline (with one cold and one warm boot child) in this process at
+   launch counts reset before and read after, configs 2, 3, 4, 7, 14, 16,
+   19, 10 and 13 and the headline (with one cold and one warm boot child) in this process at
    reduced counts, each line held: a positive value and fps, 0 < mfu <= 1,
    0 <= idle_share <= 1, the card's name, a cold boot slower than the warm;
 13. semantic mode (``Engine(mode="semantic")``) at the app's configuration:
@@ -83,7 +85,14 @@ Phases, each printed as it ends:
    stream from the same starting banks; then the app
    as a subprocess with ``--track --obstacle-memory 0.8 --plan-every 4``
    (``GetPath``, ``GetStat``) and with ``--streams 2 --track`` (``GetPthN 0``
-   and ``1``, ``NewPthN 1``, ``GetStat`` with its 2 streams).
+   and ``1``, ``NewPthN 1``, ``GetStat`` with its 2 streams);
+17. int8 serving (``ModelConfig.quantized``, ``--int8``) at 320x240 and
+   640x480: the engine calibrates and quantizes on the card, one frame
+   under the sync check, 8 frames with ``qconv`` launched once per dense
+   conv call (68 a frame) and K1, K4, K2, the relaxation and the walk once;
+   the f32 int8 forward and class map on the card against the CPU's on the
+   same prepared tree; then the app with ``--int8``, ``--int8 --track`` and
+   ``--int8 --streams 4``.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -104,6 +113,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (an FMA counts two)
+INT8_OPS = 1979e12  # H100 SXM, dense int8 on the tensor cores (a multiply-add counts two)
 # one add, compare or select per lane per clock: 132 SMs x 128 lanes x 1.98 GHz
 ALU_OPS = 33.5e12
 # K5's device work a call: the memset of its column maxima and its two kernels
@@ -929,6 +939,134 @@ def check_track(torch, np, rng, device):
         "own": (lambda: track_banks(one, one_balls, cfg, 100), "track_kernel"),
     }
 
+def forward_conv_sites(torch, np):
+    """Every distinct conv site of the default 256x320 forward: (input
+    shape (C, H, W), OIHW kernel shape, stride, groups, ConvBN site) with
+    the number of calls a forward, from the float model's convolutions."""
+    from tod_tpu_torch.core.config import ModelConfig
+    from tod_tpu_torch.core.weights import load_pinned
+    from tod_tpu_torch.models.conv import Conv
+    from tod_tpu_torch.models.yolact import Yolact
+
+    cfg = ModelConfig()
+    model = Yolact(cfg)
+    model.load_state_dict(load_pinned())
+    model.to(device="cuda", dtype=torch.bfloat16).eval()
+    sites: dict = {}
+    hooks = []
+    for name, m in model.named_modules():
+        if isinstance(m, Conv):
+            def hook(mod, inp, out, bn=name.endswith("Conv_0")):
+                key = (tuple(inp[0].shape[1:]), tuple(mod.weight.shape), mod.stride, mod.groups, bn)
+                sites[key] = sites.get(key, 0) + 1
+            hooks.append(m.register_forward_hook(hook))
+    with torch.inference_mode():
+        model(torch.zeros((1, *cfg.input_size, 3), dtype=torch.bfloat16, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def qconv_inputs(torch, gen, device, b, site, dtype):
+    """Random activations, s8 kernel, scales (one per sample) and bias for a
+    conv site, drawn from ``gen``; some activations clip at +-127."""
+    (c, h, w), wshape, _, _, _ = site
+    cout = wshape[0]
+    x = (torch.randn((b, c, h, w), generator=gen) * 3).to(dtype).to(device)
+    kq = torch.randint(-127, 128, wshape, generator=gen, dtype=torch.int8).to(device)
+    ws = (torch.rand(cout, generator=gen) * 1e-2 + 1e-4).to(device)
+    sx = (torch.rand(b, generator=gen) * 0.05 + 0.005).to(device)
+    bias = torch.randn(cout, generator=gen).to(device)
+    return x, kq, ws, sx, bias
+
+
+def check_qconv(torch, np, rng, device):
+    """The int8 convolution kernel against its plain version on the card,
+    bit for bit: every distinct conv site of the 256x320 forward (the
+    depthwise ones as quantized depthwise sites) at batch 1 and 16 in bf16,
+    at batch 1 in f32, with one scale per sample, the static quantize
+    (x * (1 / sx)) and at batch 16 also the calibration's (x / sx); then a
+    site whose int32 sums pass 2^24.  Timed at the ProtoNet 3x3 site beside
+    its plain version, ``torch._int_mm`` on the im2col'd operands and the
+    bf16 cuDNN conv, and at every site of the forward."""
+    from tod_tpu_torch.kernels.qconv import plain_qconv, qconv
+
+    gen = torch.Generator().manual_seed(13)
+    sites = forward_conv_sites(torch, np)
+    n_dense = sum(n for (_, _, _, g, _), n in sites.items() if g == 1)
+    log(f"  qconv: {len(sites)} distinct conv sites in the 256x320 forward, "
+        f"{n_dense} dense conv calls a forward")
+    checked = 0
+    for site in sites:
+        _, _, stride, groups, bn = site
+        for b, dtype, modes in ((1, torch.bfloat16, (False,)), (16, torch.bfloat16, (False, True)),
+                                (1, torch.float32, (False,))):
+            x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, b, site, dtype)
+            for divide in modes:
+                y = qconv(x, kq, ws, sx, bias, stride, groups, bn, divide)
+                want = plain_qconv(x, kq, ws, sx, bias, stride, groups, bn, divide)
+                if not torch.equal(y, want):
+                    d = (y.float() - want.float()).abs()
+                    raise AssertionError(f"qconv disagrees at {site} batch {b} {dtype} divide "
+                                         f"{divide}: {int((d > 0).sum())} values, max {d.max()}")
+                checked += 1
+    # every product +127 x +127 at K = 1152: sums of 18,580,608 > 2^24
+    x = torch.full((2, 128, 32, 40), 50.0, device=device)
+    kq = torch.full((128, 128, 3, 3), 127, dtype=torch.int8, device=device)
+    ones = torch.full((128,), 1e-3, device=device)
+    sx = torch.tensor([0.01, 0.02], device=device)
+    big = qconv(x, kq, ones, sx, ones, 1, 1)
+    if not torch.equal(big, plain_qconv(x, kq, ones, sx, ones, 1, 1)):
+        raise AssertionError("qconv disagrees where the int32 sums pass 2^24")
+    torch.cuda.synchronize()
+    log(f"  qconv: {checked} site x batch x dtype x quantize cases and one with sums of "
+        f"{1152 * 127 * 127} > 2^24 equal to the plain version bit for bit (tol exact)")
+
+    # the ProtoNet 3x3 site at batch 1, bf16
+    site = ((128, 32, 40), (128, 128, 3, 3), 1, 1, False)
+    x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, 1, site, torch.bfloat16)
+    sx0 = sx[0]
+    call = lambda: qconv(x, kq, ws, sx0, bias, 1, 1)  # noqa: E731
+    ms, _ = time_ms(call, torch)
+    plain_ms, _ = time_ms(lambda: plain_qconv(x, kq, ws, sx, bias, 1, 1), torch, n=10)
+    m, k, n = 32 * 40, 128 * 9, 128
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=device)
+    bmat = kq.reshape(n, k).t()
+    try:
+        int_mm_ms, _ = time_ms(lambda: torch._int_mm(a, bmat), torch)
+    except RuntimeError:
+        bmat = bmat.contiguous()
+        int_mm_ms, _ = time_ms(lambda: torch._int_mm(a, bmat), torch)
+    wb = kq.to(torch.bfloat16)
+    cudnn_ms, _ = time_ms(lambda: torch.nn.functional.conv2d(x, wb, None, 1, 1), torch)
+    # x read once (bf16), y written once (bf16), the s8 kernel, scales and bias
+    n_bytes = 2 * 128 * 32 * 40 * 2 + 128 * k + 3 * 128 * 4
+    bms, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS)
+    log(f"  qconv ProtoNet 3x3 (1, 128, 32, 40) -> 128, K = {k}, bf16: kernel {ms:.5f} ms, "
+        f"plain {plain_ms:.5f}, torch._int_mm (M={m}, K={k}, N={n}) {int_mm_ms:.5f}, bf16 "
+        f"cuDNN conv {cudnn_ms:.5f}, bound {bms:.6f} ({by})")
+
+    total, bound_total = 0.0, 0.0
+    for site, calls in sites.items():
+        (c, h, w), wshape, stride, groups, bn = site
+        xs, kqs, wss, sxs, bs = qconv_inputs(torch, gen, device, 1, site, torch.bfloat16)
+        t_ms, _ = time_ms(lambda: qconv(xs, kqs, wss, sxs, bs, stride, groups, bn), torch, n=20)
+        ho, wo = -(-h // stride), -(-w // stride)
+        kk = wshape[1] * wshape[2] * wshape[3]
+        site_bytes = 2 * c * h * w + 2 * wshape[0] * ho * wo + kqs.numel()
+        total += calls * t_ms
+        bound_total += calls * bound_ms(site_bytes, 2.0 * ho * wo * wshape[0] * kk, INT8_OPS)[0]
+    log(f"  qconv at every site of the 256x320 forward, batch 1, bf16 (dense and depthwise, "
+        f"by calls): {total:.4f} ms of kernel time by events against a {bound_total:.5f} ms bound")
+    return {
+        "name": "qconv", "route": "cuda", "source": "tod_tpu_torch/csrc/qconv.cu",
+        "replaces": "tod_tpu/models/qconv.py:149",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
+        "own": (call, "qconv_dense_kernel"),
+    }
+
+
 
 def reset(counters) -> None:
     for fn in counters.values():
@@ -1407,7 +1545,8 @@ def bench_phase(torch, np, counters) -> None:
              configs.run_config(4, dev, n=10), configs.run_config(7, dev, k=8),
              configs.run_config(14, dev, k=4),
              configs.run_config(16, dev, n_ticks=8, k=4, sweep=(4,)),
-             configs.run_config(19, dev, k=4, n_frames=16, ms_k=4)]
+             configs.run_config(19, dev, k=4, n_frames=16, ms_k=4),
+             configs.run_config(10, dev, k=4), configs.run_config(13, dev, k=4)]
     lines.append(headline.measure(dev, n_frames=40, runs=1, bounded_runs=1, k=16))
     launches = read(counters)
     for line in lines:
@@ -1415,7 +1554,8 @@ def bench_phase(torch, np, counters) -> None:
     if [n for n, c in launches.items() if c == 0]:
         raise AssertionError(f"kernels never launched on the bench path: {launches}")
     head = lines[-1]
-    mfus = [lines[3]["mfu"], head["mfu"], *(p["mfu"] for p in lines[4]["curve"])]
+    mfus = [lines[3]["mfu"], lines[8]["mfu"], head["mfu"],
+            *(p["mfu"] for p in lines[4]["curve"])]
     problems = [
         *(f"{line.get('config', 'headline')}: value {line['value']}" for line in lines
           if not line["value"] > 0),
@@ -1431,6 +1571,9 @@ def bench_phase(torch, np, counters) -> None:
         *(f"config 19 multistream {f} {lines[6]['multistream_tracked'][f]}"
           for f in ("tick_busy_ms", "tick_tracked_busy_ms")
           if not lines[6]["multistream_tracked"][f] > 0),
+        # config 10: both modes' chained and busy times
+        *(f"config 10 {f} {lines[7][f]}" for f in ("bf16_step_ms", "int8_step_ms", "bf16_busy_ms",
+                                                   "int8_busy_ms") if not lines[7][f] > 0),
     ]
     if not head["fps_e2e_320x240_b1"] > 0 or not head["bounded_fps"] > 0:
         problems.append(f"headline fps {head['fps_e2e_320x240_b1']}, {head['bounded_fps']}")
@@ -1917,6 +2060,119 @@ def app_streams(root):
         raise AssertionError("the multistream app fell short")
 
 
+def static_dense_calls(torch, model, x) -> int:
+    """The static int8 convolutions one forward of ``model`` makes."""
+    from tod_tpu_torch.models.qconv import conv_sites
+
+    calls = [0]
+    hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+             for m in conv_sites(model).values() if m.branch == "static"]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return calls[0]
+
+
+def int8_path(torch, np, state, counters):
+    """Phase 17: ``--int8`` serving, ``ModelConfig.quantized``, at 320x240
+    (model 240x320) and 640x480 (480x640), bf16: the engine prepares the
+    int8 tree on the card (calibration through the kernel's dynamic
+    branch), then one ``serve_step_plan`` frame under the sync check and 8
+    frames with the path's launch counts (``qconv`` once per dense conv
+    call of the forward, K1, K4, K2, the relaxation and the walk once a
+    frame); then, at 240x320 in f32 (TF32 off), the card's int8 forward and
+    ``Engine._step`` against the CPU's on the same prepared tree."""
+    from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig
+    from tod_tpu_torch.kernels.qconv import qconv
+    from tod_tpu_torch.ops.preprocess import pack_frame, preprocess_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+
+    launches, frame_ms = None, {}
+    for hw in ((240, 320), (480, 640)):
+        cfg = PipelineConfig(camera=CameraConfig(width=hw[1], height=hw[0]),
+                             model=ModelConfig(input_size=hw, quantized=True))
+        t = time.time()
+        qconv.launches = 0
+        eng = Engine(cfg, state, device="cuda")
+        torch.cuda.synchronize()
+        log(f"  int8 engine {hw}: prepared on the card in {time.time() - t:.2f}s "
+            f"({qconv.launches} calibration launches)")
+        frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+                  for f in SyntheticSource(cfg.camera, seed=0, n_frames=N_FRAMES + 1).frames()]
+        eng.serve_step_plan(frames[0])  # warm-up
+        per_forward = static_dense_calls(
+            torch, eng.model, torch.zeros((1, *hw, 3), dtype=torch.bfloat16, device="cuda"))
+        plan, enqueue_ms = sync_checked(torch, lambda: eng.serve_step_plan(frames[1]))
+        check_plan(np, plan.cpu().numpy(), cfg.planner.max_path_steps)
+        reset(counters)
+        per_frame, n_valid = [], []
+        for packed in frames[1:]:
+            t = time.perf_counter()
+            buf = eng.serve_step_plan(packed).cpu().numpy()
+            per_frame.append(1e3 * (time.perf_counter() - t))
+            n_valid.append(check_plan(np, buf, cfg.planner.max_path_steps))
+        launches = read(counters)
+        frame_ms[hw] = statistics.median(per_frame)
+        log(f"  int8 {hw}: one frame under set_sync_debug_mode('error'): no host sync, "
+            f"enqueued in {enqueue_ms:.2f} ms; {N_FRAMES} frames median {frame_ms[hw]:.2f} ms "
+            f"{[round(v, 2) for v in per_frame]}; plan n_valid {n_valid}; launches {launches} "
+            f"({per_forward} dense conv calls a forward)")
+        want = {name: N_FRAMES for name in counters}
+        want["qconv"] = N_FRAMES * per_forward
+        if launches != want or per_forward != 68:
+            raise AssertionError(f"int8 launches {launches}, not {want} (68 dense calls)")
+        if max(n_valid) == 0:
+            raise AssertionError(f"no int8 frame at {hw} produced a path to a ball")
+        del eng
+
+    # the card against the CPU on the same prepared tree, f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hw = (240, 320)
+    cfg = PipelineConfig(camera=CameraConfig(width=hw[1], height=hw[0]),
+                         model=ModelConfig(input_size=hw, dtype="float32", quantized=True))
+    card = Engine(cfg, state, device="cuda")
+    prepared = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    cpu = Engine(cfg, prepared, device="cpu")
+    f = next(SyntheticSource(cfg.camera, seed=0, n_frames=1).frames())
+    x = preprocess_frame(torch.from_numpy(f.rgb), hw, torch.float32)
+    with torch.inference_mode():
+        outs = {"cuda": card.model(x.cuda()), "cpu": cpu.model(x)}
+    worst = {}
+    for field in ("loc", "conf", "coeff", "prototypes", "sem_logits"):
+        a, b = getattr(outs["cuda"], field).cpu(), getattr(outs["cpu"], field)
+        worst[field] = ((a - b).abs().max().item(), (a != b).float().mean().item(),
+                        b.abs().max().item())
+    packed = torch.from_numpy(pack_frame(f.rgb, f.depth))
+    with torch.inference_mode():
+        dets = {"cuda": card._step(packed)[1], "cpu": cpu._step(packed)[1]}
+    cls_diff = (dets["cuda"].class_map.cpu() != dets["cpu"].class_map).float().mean().item()
+    log("  int8 forward f32 card vs CPU, same prepared tree (max abs diff, share differing, "
+        "max |value|): " + ", ".join(f"{k} ({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})"
+                                     for k, v in worst.items())
+        + f"; class-map pixels differing {cls_diff:.2e} (tol 1e-3; each field's max abs diff "
+        f"within 1% of its max |value|: the int8 convolutions are exact, the bf16-kernel "
+        f"depthwise convolutions may sum in another order on the card)")
+    if cls_diff > 1e-3 or any(v[0] > 0.01 * v[2] for v in worst.values()):
+        raise AssertionError("the int8 forward on the card and on the CPU disagree")
+    return launches, frame_ms
+
+
+def int8_apps(root) -> None:
+    """``python3 -m tod_tpu_torch.app --int8``, with ``--track`` and with
+    ``--streams 4``, each as a subprocess at the app's configuration."""
+    for args, what in ((["--int8", "--frames", "16"], "n_frames"),
+                       (["--int8", "--track", "--plan-every", "4", "--frames", "16"], "n_frames"),
+                       (["--int8", "--streams", "4", "--frames", "8"], "n_ticks")):
+        metrics, _, secs = run_app(root, [*args, "--no-server"])
+        log(f"  app {' '.join(args)}: rc 0 in {secs:.1f}s, {what}={metrics[what]}, "
+            f"plans_done={metrics['plans_done']}")
+        if metrics[what] < 1 or metrics["plans_done"] < 1:
+            raise AssertionError(f"the app {' '.join(args)} fell short: {metrics}")
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -1971,6 +2227,7 @@ def main() -> int:
     from tod_tpu_torch.kernels.connections import connection_planes
     from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
     from tod_tpu_torch.kernels.path_walk import walk_path
+    from tod_tpu_torch.kernels.qconv import qconv
     from tod_tpu_torch.kernels.relax import bellman_ford_grid
     from tod_tpu_torch.kernels.track import track_banks
     from tod_tpu_torch.native import loader, ring
@@ -1986,6 +2243,7 @@ def main() -> int:
     ptq_path = {**serving, "quantize": quantize_tensor_pallas}
     semantic = {"cc_labels": root_labels, **serving}
     tracked = {"track": track_banks, **serving}
+    int8 = {"qconv": qconv, **serving}
 
     log("== 1. device")
     smi = nvidia_smi_line()
@@ -2017,7 +2275,8 @@ def main() -> int:
     kernels = [check_k1(torch, np, rng, device), check_k2(torch, np, rng, device),
                check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
                *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device),
-               check_cc(torch, np, rng, device), check_track(torch, np, rng, device)]
+               check_cc(torch, np, rng, device), check_track(torch, np, rng, device),
+               check_qconv(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
 
     log("== 4. main path")
@@ -2064,6 +2323,12 @@ def main() -> int:
     app_streams(root)
     log(f"  phases 15 and 16 took {time.time() - t:.1f}s")
 
+    log("== 17. int8 serving (--int8) at 320x240 and 640x480, and the int8 apps")
+    t = time.time()
+    int8_launches, int8_ms = int8_path(torch, np, state, int8)
+    int8_apps(root)
+    log(f"  phase 17 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
@@ -2071,13 +2336,15 @@ def main() -> int:
     launches["quantize"] = ptq_launches["quantize"]
     launches["cc_labels"] = semantic_launches["cc_labels"]
     launches["track"] = tracked_launches["track"]
+    launches["qconv"] = int8_launches["qconv"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"main path median {frame_ms:.2f} ms/frame; semantic {semantic_ms:.2f} ms/frame, "
-        f"semantic app {semantic_fps:.3f} fps; tracked+memory {tracked_ms:.2f} ms/frame; total "
+        f"semantic app {semantic_fps:.3f} fps; tracked+memory {tracked_ms:.2f} ms/frame; int8 "
+        f"{', '.join(f'{hw}: {ms:.2f}' for hw, ms in int8_ms.items())} ms/frame; total "
         f"{time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import os
 import subprocess
 import sys
 
@@ -22,6 +23,9 @@ from tod_tpu_torch.bench import configs
 from tod_tpu_torch.bench.configs import CONFIGS, UNPORTED, run_config
 from tod_tpu_torch.core import config as tcfg
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the JAX package's metric name of each config the port runs
 METRICS = {
@@ -32,14 +36,15 @@ METRICS = {
     6: "fps_e2e_640x480_b1",
     7: "batch2_model_throughput_64x64",
     8: "fps_latency_bounded_320x240",
+    10: "int8_vs_bf16_serve_step_320x240",
+    13: "batch2_model_throughput_64x64_int8",
     14: "batch_scaling_peak_throughput_64x64",
     16: "fps_multistream_sweep_320x240",
     17: "fps_latency_bounded_640x480",
     19: "tracked_serving_step_delta_ms",
 }
 # the ROADMAP.md item each unported config waits for
-ITEMS = {1: "data/frc_balls.png", 9: "M16", 10: "M12", 11: "M14", 12: "M14", 13: "M12", 15: "M13",
-         18: "M16"}
+ITEMS = {1: "data/frc_balls.png", 9: "M16", 11: "M14", 12: "M14", 15: "M13", 18: "M16"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
 
@@ -381,7 +386,8 @@ def test_set_build_dir_moves_the_host_build(tmp_path):
     """The boot's cold build: g++ builds the native planner into the
     directory given, and the directory cannot move once a library is out."""
     out = subprocess.run([sys.executable, "-c", SET_BUILD_DIR, str(tmp_path / "b")],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "['libplanner']"
 
@@ -440,5 +446,5 @@ class TestProfile:
         assert set(our_kernels()) == {
             "bump_kernel", "bump_memo_kernel", "cc_flatten_kernel", "cc_init_kernel",
             "cc_merge_kernel", "connections_kernel", "mask_assembly_kernel",
-            "path_walk_kernel", "quantize_colmax_kernel", "quantize_kernel", "relax_kernel",
-            "track_kernel"}
+            "path_walk_kernel", "qconv_dense_kernel", "qconv_depthwise_kernel",
+            "quantize_colmax_kernel", "quantize_kernel", "relax_kernel", "track_kernel"}

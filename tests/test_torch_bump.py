@@ -48,6 +48,9 @@ from tod_tpu_torch.kernels.bump import (
     table_words,
 )
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 
 def peak_map(seed: int, h: int, w: int, L: int, integral: bool, density: float = 0.08):
     """A P = L padded peak map: uniform floats, or integral values as the

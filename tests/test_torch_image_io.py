@@ -18,6 +18,9 @@ from PIL import Image
 from tod_tpu_torch.utils.image_io import decode_png, load_image, save_gray_bmp, save_rgb
 from tod_tpu_torch.utils.resample import resize_bicubic
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 
 def pil_png(im: Image.Image, **kw) -> bytes:
     buf = io.BytesIO()

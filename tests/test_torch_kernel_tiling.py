@@ -29,6 +29,9 @@ from tod_tpu_torch.kernels import connections as k2
 from tod_tpu_torch.kernels import mask_assembly as k1
 from tod_tpu_torch.ops import ieee
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 SMS = 132  # an H100's SM count: the plans the kernels take there
 NAN = float("nan")
 

@@ -22,6 +22,9 @@ from tod_tpu_torch.kernels.connections import (
 from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks, plain_assemble_crop_masks
 from tod_tpu_torch.kernels.path_walk import plain_walk_path, walk_path
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 
 def k1_inputs(seed: int, b: int, hm: int, wm: int, k: int, n: int):
     rng = np.random.default_rng(seed)

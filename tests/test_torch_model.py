@@ -17,6 +17,9 @@ from tod_tpu_torch.core.weights import carry_across, read_tree
 from tod_tpu_torch.models.conv import same_pads
 from tod_tpu_torch.models.yolact import Yolact
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 
 def nest(flat: dict) -> dict:
     out: dict = {}

@@ -37,6 +37,9 @@ from tod_tpu_torch.runtime.multistream import (
 )
 from tod_tpu_torch.serve.server import PathStore
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 # the serving loop's tests: a narrow seeded model on a small camera
 TINY_CAM = tcfg.CameraConfig(width=64, height=48)
 TINY = tcfg.PipelineConfig(

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import pathlib
 import socket
+import os
 import subprocess
 import sys
 import time
@@ -21,6 +22,9 @@ from tod_tpu.core import config as jcfg
 from tod_tpu.core.types import Path as JaxPath
 from tod_tpu_torch.core import config as tcfg
 from tod_tpu_torch.core.types import Path
+
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # A camera small enough for the CPU, with the model at its trained 256x320
@@ -447,6 +451,7 @@ def test_port_runs_without_jax():
     that the port's own writer made."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n_mods, n_valid, n_sem, max_id, rc, rc_png, bench, loaded = out.stdout.split(maxsplit=7)

@@ -19,6 +19,9 @@ from tod_tpu_torch.core import config as tcfg
 from tod_tpu_torch.core.types import Scene
 from tod_tpu_torch.planner import api, dijkstra
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 # A few small maps and one camera-sized one, so that the NumPy Dijkstra stays fast.
 MAPS = [(0, 48, 64), (1, 48, 64), (2, 48, 64), (3, 120, 160)]
 

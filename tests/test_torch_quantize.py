@@ -21,6 +21,9 @@ from tod_tpu_torch.core import config as tcfg
 from tod_tpu_torch.ops import ieee
 from tod_tpu_torch.ops import quantize as tq
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 MASK = 0xFFFFFFFF
 
 

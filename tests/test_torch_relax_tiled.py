@@ -32,6 +32,9 @@ from tod_tpu_torch.kernels.relax import (
     relax_tiling,
 )
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 SMS = 132  # an H100's SM count: the tilings the kernel takes there
 
 

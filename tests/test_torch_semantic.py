@@ -27,6 +27,9 @@ from tests.test_torch_pipeline import (
 from tod_tpu.core import config as jcfg
 from tod_tpu_torch.core import config as tcfg
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 
 def serpentine(h: int, w: int) -> np.ndarray:
     """Rows joined alternately at the right and left ends: one component

@@ -14,6 +14,7 @@ import ssl
 import struct
 
 import pytest
+import torch
 
 from tod_tpu.core.config import ServerConfig as JaxServerConfig
 from tod_tpu.core.types import Path as JaxPath
@@ -21,6 +22,9 @@ from tod_tpu.serve import server as jax_server
 from tod_tpu_torch.core.config import ServerConfig
 from tod_tpu_torch.core.types import Path
 from tod_tpu_torch.serve import server as port_server
+
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
 
 CREATED = 1700000013.0
 DIRECTIONS = [(2.0, 0.5), (1.25, -0.75)]

@@ -34,6 +34,9 @@ from tod_tpu_torch.kernels import track as track_kernel
 from tod_tpu_torch.track import init_tracks, shift_tracks, track_update, tracks_to_balls
 from tod_tpu_torch.track.tracker import ACTIVE, HITS, MISSES
 
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
+
 # the engines run the pipeline tests' configuration (a 160x120 camera, the
 # model at its trained 256x320 input, f32), where the two packages' class
 # maps agree pixel for pixel

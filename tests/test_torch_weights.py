@@ -14,6 +14,10 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+# six xdist workers share the cores: one intra-op thread a worker
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_LEAVES = 291  # batch_stats + params of the pinned yolact_mnv2_fpn tree

@@ -9,6 +9,7 @@ Run as::
     python -m tod_tpu_torch.app --source png --image scene.png --debug-dump
     python -m tod_tpu_torch.app --track --obstacle-memory 0.8 --plan-every 4
     python -m tod_tpu_torch.app --streams 4 --track
+    python -m tod_tpu_torch.app --int8
 
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
@@ -29,7 +30,10 @@ the tracker kernel each planning frame (it takes the device planner and
 ``--plan-every``), ``--obstacle-memory D`` keeps a decayed memory of robot
 bumps beside it, and ``--streams N`` serves N camera streams a tick through
 ``MultiStreamEngine``, each stream's path answered by ``GetPthN``/``NewPthN``;
-the reference's conflict checks between these flags hold.  Flags of features
+the reference's conflict checks between these flags hold.  ``--int8`` serves
+the int8 model: the weights calibrated on 4 synthetic frames and quantized
+at load, each dense conv one launch of the int8 kernel (``csrc/qconv.cu``);
+it goes with every other flag.  Flags of features
 the port does not have yet exit with a message naming their item in
 ``ROADMAP.md``.
 """
@@ -90,7 +94,6 @@ def _refuse_unported(args) -> None:
     """Exit with the ``ROADMAP.md`` item of the first flag the port lacks."""
     refused = (
         (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
-        (args.int8, "--int8", "B, M12: int8 inference"),
         (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
     )
     for hit, flag, item in refused:
@@ -145,7 +148,8 @@ def main(argv=None, device=None) -> int:
     cam = CameraConfig(width=args.width, height=args.height, fps=args.fps)
     cfg = PipelineConfig(
         camera=cam,
-        model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8)),
+        model=ModelConfig(input_size=(args.height // 8 * 8, args.width // 8 * 8),
+                          quantized=args.int8),
         planner=PlannerConfig(backend="tpu" if args.track else args.planner,
                               signed_turns=args.signed_turns, start_offset=args.start_offset),
         tracker=TrackerConfig(enabled=args.track, obstacle_memory=args.obstacle_memory),

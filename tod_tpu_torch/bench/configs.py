@@ -59,12 +59,17 @@ Where the port differs from the JAX configs:
   local card's readback floor.  Config 19's bounded point is
   ``_bounded_point``'s, as configs 8 and 17 take it (no transport
   correction).
+- Configs 10 and 13 (int8): config 10 gives each mode's busy ms
+  (``busy_ms``) and their ratio beside the JAX chained fields; config 13's
+  FLOPs are the float model's of the same shapes, since ``FlopCounterMode``
+  does not see the int8 kernel.
 - A config whose modules the port lacks exits naming its ``ROADMAP.md``
   item (``UNPORTED``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import subprocess
@@ -522,6 +527,97 @@ def config14_batch_scaling(device=None, k: int | None = None) -> dict:
     }
 
 
+def int8_model(mcfg: ModelConfig, device: torch.device):
+    """The static int8 model of ``mcfg`` (``quantized``) on ``device``, as the
+    JAX config prepares it: ``model_state``'s weights calibrated on 2
+    synthetic frames (seed 101) of a camera at the model's size, then
+    quantized (``runtime.engine._calibrate_int8``)."""
+    from tod_tpu_torch.models.qconv import load_prepared
+    from tod_tpu_torch.models.yolact import Yolact
+    from tod_tpu_torch.runtime.engine import _calibrate_int8
+
+    hw = mcfg.input_size
+    cfg = PipelineConfig(camera=CameraConfig(width=hw[1], height=hw[0]), model=mcfg)
+    model = Yolact(mcfg)
+    load_prepared(model, _calibrate_int8(cfg, model_state(mcfg), device, n_calib=2))
+    return model.to(device).eval()
+
+
+def config13_int8_batch_throughput(device=None, k: int | None = None) -> dict:
+    """Config 13: config 7 through the static int8 model (``int8_model``):
+    the forward at batch 16, VGA (batch 2 of the narrow model at 64x64 on
+    the CPU), ``k`` forwards chained, each dense conv one launch of the int8
+    kernel.  The kernel runs outside ``FlopCounterMode``'s sight, so the
+    FLOPs are those of the float model of the same shapes (the same
+    convolutions, 2 per multiply-add), and ``mfu`` is against the card's
+    int8 peak."""
+    dev = resolve_device(device)
+    on_card = _on_card(dev)
+    if on_card:
+        hw, mcfg = (480, 640), ModelConfig(input_size=(480, 640), quantized=True)
+    else:
+        hw, mcfg = (64, 64), ModelConfig(input_size=(64, 64), quantized=True, **CPU_MODEL)
+    batch = 16 if on_card else 2
+    model = int8_model(mcfg, dev)
+    x0 = torch.zeros((batch, *hw, 3), dtype=model.compute_dtype, device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kk = _count(k, dev, 128, 2)
+    step_s, host_s, _ = chained_step_s(lambda x: model(x).loc, x0, kk, dev)
+    twin = _model(dataclasses.replace(mcfg, quantized=False), dev)
+    flops = count_flops(twin, x0)
+    ips = round(batch / step_s, 1)
+    return {
+        "metric": f"batch{batch}_model_throughput_{hw[0]}x{hw[1]}_int8",
+        "value": ips,
+        "unit": "images/s",
+        "vs_baseline": round(ips / REF_FRAME_FPS, 3),
+        "step_ms": round(step_s * 1e3, 4),
+        "step_ms_host": round(host_s * 1e3, 4),
+        "step_gflops": round(flops / 1e9, 3),
+        "mfu": _mfu(flops, step_s, dev, "int8"),
+        "max_memory_mb": (round(torch.cuda.max_memory_allocated(dev) / 2**20, 1)
+                          if on_card else None),
+        "k": kk,
+        **_labels(dev),
+    }
+
+
+def config10_int8_vs_bf16(device=None, k: int | None = None) -> dict:
+    """Config 10: the static int8 serve step against the bf16 one at
+    320x240 (model at 240x320, pinned weights): each engine's packed scene
+    step (``Engine.serve_step_packed``, the JAX config's
+    ``_serve_step_packed_fn``) chained ``k`` times (``chained_step_s``); the
+    value is bf16 ms over int8 ms.  Beside each chained time, which on the
+    card is the host's launch rate, the step's device busy ms
+    (``busy_ms``), taken after both chained times."""
+    dev = resolve_device(device)
+    kk = _count(k, dev, 128, 2)
+    cfg0 = _pipeline_cfg()
+    steps, ms = {}, {}
+    for name, q in (("bf16", False), ("int8", True)):
+        cfg = dataclasses.replace(cfg0, model=dataclasses.replace(cfg0.model, quantized=q))
+        eng = _engine(cfg, dev)
+        eng.warmup()
+        packed0 = torch.zeros((cfg.camera.height * cfg.camera.width * 5,), dtype=torch.uint8,
+                              device=dev)
+        steps[name] = (eng.serve_step_packed, packed0)
+        ms[name] = chained_step_s(eng.serve_step_packed, packed0, kk, dev)[0] * 1e3
+    busy = {name: busy_ms(fn, x0, dev) for name, (fn, x0) in steps.items()}
+    return {
+        "metric": "int8_vs_bf16_serve_step_320x240",
+        "value": round(ms["bf16"] / ms["int8"], 3),
+        "unit": "x (bf16_ms / int8_ms)",
+        "bf16_step_ms": round(ms["bf16"], 3),
+        "int8_step_ms": round(ms["int8"], 3),
+        "bf16_busy_ms": busy["bf16"],
+        "int8_busy_ms": busy["int8"],
+        "busy_ratio": round(busy["bf16"] / busy["int8"], 3) if busy["int8"] else None,
+        "k": kk,
+        **_labels(dev),
+    }
+
+
 def _bounded_point(eng, mi: int | None, n_frames: int) -> dict:
     """One point of the latency-bounded sweep: ``mi`` frames in flight on
     the device, a plan every 4th frame."""
@@ -773,10 +869,8 @@ UNPORTED = {
     1: ("single frame on the reference fixture data/frc_balls.png",
         "B: the reference fixture data/frc_balls.png"),
     9: ("data-parallel batch serving over a mesh", "B, M16: multi-GPU"),
-    10: ("static-int8 against bf16 serve step", "B, M12: int8 inference"),
     11: ("train-step throughput and MFU", "B, M14: training"),
     12: ("wall-clock chunked training", "B, M14: training"),
-    13: ("static-int8 batch throughput", "B, M12: int8 inference"),
     15: ("throughput by backbone (MobileNetV2, ResNet18, ResNet50)",
          "B, M13: ResNet backbones"),
     18: ("pipeline-parallel serving against the fused graph",
@@ -806,6 +900,8 @@ CONFIGS = {
     6: config6_streaming_e2e_vga,
     7: config7_batch_throughput_mfu,
     8: config8_latency_bounded_serving,
+    10: config10_int8_vs_bf16,
+    13: config13_int8_batch_throughput,
     14: config14_batch_scaling,
     16: config16_multistream_serving,
     17: config17_latency_bounded_vga,

@@ -2,9 +2,10 @@
 
 A copy of the dataclasses in the JAX package's ``core/config.py`` that the port's main
 path reads, with the same defaults: camera 640x480, the ``yolact_mnv2_fpn``
-model at a 256x320 input in bfloat16, the fusion constants of the reference
-shaders, the planner's backends and limits, and the ball tracker.  Fields of
-features the port does not run yet (int8, training) arrive with them.
+model at a 256x320 input in bfloat16, int8 inference, the fusion constants
+of the reference shaders, the planner's backends and limits, and the ball
+tracker.  Fields of features the port does not run yet (training) arrive
+with them.
 """
 
 from __future__ import annotations
@@ -46,6 +47,17 @@ class ModelConfig:
     anchor_scale_mults: tuple[float, ...] = (1.0, 2 ** (1 / 3), 2 ** (2 / 3))
     width_mult: float = 1.0
     dtype: str = "bfloat16"  # compute dtype of the conv stack
+    # Int8 inference (models/qconv.py): s8 weights (per output channel) x s8
+    # activations (one calibrated scale a conv site) accumulated in int32 by
+    # the kernel csrc/qconv.cu; the float weights are prepared once at load
+    # (models/prepare.py).
+    quantized: bool = False
+    # Whether the int8 preparation quantizes the depthwise kernels too; off,
+    # they serve as bfloat16 convolutions inside the int8 graph.
+    quantize_depthwise: bool = False
+    # Quantization-aware training (with quantized=True).  Training is not
+    # ported: validate() refuses it.
+    qat: bool = False
     max_detections: int = 32
     score_threshold: float = 0.3
     nms_iou_threshold: float = 0.5
@@ -185,6 +197,11 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append("anchor_scales must have one entry per FPN level")
     if cfg.model.meaningful_classes > cfg.model.num_classes:
         problems.append("meaningful_classes exceeds num_classes")
+    if cfg.model.qat and not cfg.model.quantized:
+        problems.append("model.qat requires model.quantized=True")
+    elif cfg.model.qat:
+        problems.append("model.qat is not ported to tod_tpu_torch yet "
+                        "(ROADMAP.md B, M14: training (QAT))")
     if cfg.model.backbone != "mobilenetv2":
         problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
     if cfg.planner.backend not in PLANNER_BACKENDS:

@@ -7,8 +7,12 @@ the JAX package's ``models/prepare.py::fold_batchnorm`` folds it (eps 1e-5, in f
 stored as float32): the kernel absorbs ``gamma / sqrt(var + eps)`` and the BN
 becomes the conv's bias ``beta - mean * gamma / sqrt(var + eps)``.  Kernels go
 from HWIO to OIHW; a depthwise kernel ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)``
-by the same transpose.  Every leaf must be consumed and every state entry
-filled with the right shape, or the carry-across raises.
+by the same transpose.  A tree prepared for int8 serving (the JAX
+``prepare_int8_params``: folded, ``kernel_q`` s8 with ``w_scale`` and
+``act_scale``, bfloat16 depthwise kernels) comes across as it is, its BN
+biases as the sites' biases; ``models.qconv.load_prepared`` loads it.
+Every leaf must be consumed and every state entry filled with the right
+shape, or the carry-across raises.
 
 ``carry_state`` carries the serving state across too: a track bank and an
 obstacle memory of the JAX package's tracked steps.
@@ -35,7 +39,8 @@ BN_EPS = 1e-5
 
 def carry_across(tree: Mapping[str, np.ndarray],
                  model: nn.Module | None = None) -> dict[str, torch.Tensor]:
-    """Flat Flax tree -> state dict of float32 CPU tensors.
+    """Flat Flax tree -> state dict of CPU tensors (float32, or the prepared
+    tree's types).
 
     With ``model`` given, the result must match its state dict key for key
     and shape for shape.
@@ -49,12 +54,15 @@ def carry_across(tree: Mapping[str, np.ndarray],
         return np.asarray(tree[key])
 
     state: dict[str, torch.Tensor] = {}
-    kernels = sorted(k for k in tree if k.startswith("params/") and k.endswith("/kernel"))
-    for key in kernels:
-        site = key[len("params/") : -len("/kernel")]
+    sites = sorted(k[len("params/"):].rpartition("/")[0] for k in tree
+                   if k.startswith("params/") and k.rpartition("/")[2] in ("kernel", "kernel_q"))
+    for site in sites:
+        prepared = f"params/{site}/kernel_q" in tree
+        key = f"params/{site}/kernel_q" if prepared else f"params/{site}/kernel"
         kernel = take(key)
         if kernel.ndim != 4:
             raise ValueError(f"{key}: expected an HWIO conv kernel, got shape {kernel.shape}")
+        as_is = prepared or kernel.dtype != np.float32  # served as it is: not folded again
         parent, last = site.rpartition("/")[::2]
         if last == "Conv_0" and f"params/{parent}/BatchNorm_0/scale" in tree:
             bn = f"params/{parent}/BatchNorm_0/"
@@ -63,14 +71,25 @@ def carry_across(tree: Mapping[str, np.ndarray],
             beta = take(bn + "bias").astype(np.float64)
             mean = take(st + "mean").astype(np.float64)
             var = take(st + "var").astype(np.float64)
+            if as_is and (np.any(gamma != 1.0) or np.any(mean != 0.0)):
+                raise ValueError(f"{key}: a prepared kernel needs its BatchNorm folded")
             g = gamma / np.sqrt(var + BN_EPS)
-            kernel = (kernel.astype(np.float64) * g).astype(np.float32)
+            if not as_is:
+                kernel = (kernel.astype(np.float64) * g).astype(np.float32)
             bias = (beta - mean * g).astype(np.float32)
         else:
             bias = take(f"params/{site}/bias").astype(np.float32)
         name = site.replace("/", ".")
-        weight = np.ascontiguousarray(kernel.astype(np.float32).transpose(3, 2, 0, 1))
-        state[name + ".weight"] = torch.from_numpy(weight)
+        oihw = np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
+        if prepared:
+            state[name + ".kernel_q"] = torch.from_numpy(oihw.astype(np.int8))
+            state[name + ".w_scale"] = torch.from_numpy(
+                np.ascontiguousarray(take(f"params/{site}/w_scale"), dtype=np.float32))
+            state[name + ".act_scale"] = torch.tensor(
+                np.float32(take(f"params/{site}/act_scale")), dtype=torch.float32)
+        else:
+            dtype = getattr(torch, str(kernel.dtype))
+            state[name + ".weight"] = torch.from_numpy(oihw.astype(np.float32)).to(dtype)
         state[name + ".bias"] = torch.from_numpy(np.ascontiguousarray(bias))
 
     unused = sorted(set(tree) - used)

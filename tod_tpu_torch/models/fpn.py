@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tod_tpu_torch.models.conv import Conv
+from tod_tpu_torch.models.qconv import make_conv
 
 
 def upsample_to(x: torch.Tensor, hw) -> torch.Tensor:
@@ -18,17 +18,19 @@ def upsample_to(x: torch.Tensor, hw) -> torch.Tensor:
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels, channels: int = 128, levels: int = 5):
+    def __init__(self, in_channels, channels: int = 128, levels: int = 5,
+                 quantized: bool = False):
         super().__init__()
         c3, c4, c5 = in_channels
-        self.lat5 = Conv(c5, channels, 1)
-        self.lat4 = Conv(c4, channels, 1)
-        self.lat3 = Conv(c3, channels, 1)
+        q = quantized
+        self.lat5 = make_conv(q, c5, channels, 1)
+        self.lat4 = make_conv(q, c4, channels, 1)
+        self.lat3 = make_conv(q, c3, channels, 1)
         for i in (3, 4, 5):
-            self.add_module(f"smooth{i}", Conv(channels, channels, 3))
+            self.add_module(f"smooth{i}", make_conv(q, channels, channels, 3))
         self.n_down = levels - 3
         for i in range(self.n_down):
-            self.add_module(f"down{6 + i}", Conv(channels, channels, 3, stride=2))
+            self.add_module(f"down{6 + i}", make_conv(q, channels, channels, 3, stride=2))
 
     def forward(self, c3, c4, c5):
         p5 = self.lat5(c5)

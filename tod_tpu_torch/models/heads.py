@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tod_tpu_torch.models.conv import Conv
+from tod_tpu_torch.models.qconv import make_conv
 
 
 def _per_anchor(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -20,14 +20,14 @@ class PredictionHead(nn.Module):
     box offsets, class logits and raw mask coefficients per anchor."""
 
     def __init__(self, cin: int, num_classes: int, num_anchors: int,
-                 num_prototypes: int, channels: int = 128):
+                 num_prototypes: int, channels: int = 128, quantized: bool = False):
         super().__init__()
-        a = num_anchors
+        a, q = num_anchors, quantized
         self.num_classes, self.num_prototypes = num_classes, num_prototypes
-        self.tower = Conv(cin, channels, 3)
-        self.loc = Conv(channels, a * 4, 3)
-        self.conf = Conv(channels, a * num_classes, 3)
-        self.coeff = Conv(channels, a * num_prototypes, 3)
+        self.tower = make_conv(q, cin, channels, 3)
+        self.loc = make_conv(q, channels, a * 4, 3)
+        self.conf = make_conv(q, channels, a * num_classes, 3)
+        self.coeff = make_conv(q, channels, a * num_prototypes, 3)
 
     def forward(self, p: torch.Tensor):
         x = torch.relu(self.tower(p))
@@ -41,9 +41,9 @@ class PredictionHead(nn.Module):
 class SemanticHead(nn.Module):
     """1x1 conv on P3 -> per-pixel class logits at stride 8, f32 NHWC."""
 
-    def __init__(self, cin: int, num_classes: int):
+    def __init__(self, cin: int, num_classes: int, quantized: bool = False):
         super().__init__()
-        self.sem_out = Conv(cin, num_classes, 1)
+        self.sem_out = make_conv(quantized, cin, num_classes, 1)
 
     def forward(self, p3: torch.Tensor) -> torch.Tensor:
         return self.sem_out(p3).float().permute(0, 2, 3, 1)

@@ -1,6 +1,7 @@
 """MobileNetV2 backbone returning the C3/C4/C5 taps at strides 8/16/32
 (counterpart of the JAX package's ``models/mobilenetv2.py``).  BatchNorm arrives
-folded into each conv's weight and bias."""
+folded into each conv's weight and bias; with ``quantized`` each conv is a
+``QConv`` that adds that bias as the folded BatchNorm does."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tod_tpu_torch.models.conv import Conv
+from tod_tpu_torch.models.qconv import make_conv
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -23,9 +24,9 @@ class ConvBN(nn.Module):
     """Conv + folded BN (+ ReLU6)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, act: bool = True):
+                 groups: int = 1, act: bool = True, quantized: bool = False):
         super().__init__()
-        self.Conv_0 = Conv(cin, cout, kernel, stride, groups)
+        self.Conv_0 = make_conv(quantized, cin, cout, kernel, stride, groups, bn=True)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -34,14 +35,16 @@ class ConvBN(nn.Module):
 
 
 class InvertedResidual(nn.Module):
-    def __init__(self, inp: int, features: int, stride: int, expand: int):
+    def __init__(self, inp: int, features: int, stride: int, expand: int,
+                 quantized: bool = False):
         super().__init__()
         hidden = inp * expand
+        q = quantized
         layers = []
         if expand != 1:
-            layers.append(ConvBN(inp, hidden, kernel=1))
-        layers.append(ConvBN(hidden, hidden, kernel=3, stride=stride, groups=hidden))
-        layers.append(ConvBN(hidden, features, kernel=1, act=False))
+            layers.append(ConvBN(inp, hidden, kernel=1, quantized=q))
+        layers.append(ConvBN(hidden, hidden, kernel=3, stride=stride, groups=hidden, quantized=q))
+        layers.append(ConvBN(hidden, features, kernel=1, act=False, quantized=q))
         for i, layer in enumerate(layers):
             self.add_module(f"ConvBN_{i}", layer)
         self.n_layers = len(layers)
@@ -70,16 +73,16 @@ _TAPS = {2: "c3", 4: "c4", 6: "c5"}
 class MobileNetV2(nn.Module):
     """NCHW input -> (C3, C4, C5)."""
 
-    def __init__(self, width_mult: float = 1.0):
+    def __init__(self, width_mult: float = 1.0, quantized: bool = False):
         super().__init__()
         cin = _make_divisible(32 * width_mult)
-        self.ConvBN_0 = ConvBN(3, cin, stride=2)
+        self.ConvBN_0 = ConvBN(3, cin, stride=2, quantized=quantized)
         self.tap_after: dict[int, str] = {}
         idx = 0
         for stage, (t, c, n, s) in enumerate(_MNV2_CFG):
             feats = _make_divisible(c * width_mult)
             for i in range(n):
-                block = InvertedResidual(cin, feats, s if i == 0 else 1, t)
+                block = InvertedResidual(cin, feats, s if i == 0 else 1, t, quantized)
                 self.add_module(f"InvertedResidual_{idx}", block)
                 cin = feats
                 idx += 1

@@ -7,18 +7,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tod_tpu_torch.models.conv import Conv
+from tod_tpu_torch.models.qconv import make_conv
 from tod_tpu_torch.models.fpn import upsample_to
 
 
 class ProtoNet(nn.Module):
-    def __init__(self, cin: int, num_prototypes: int = 32, channels: int = 128):
+    def __init__(self, cin: int, num_prototypes: int = 32, channels: int = 128,
+                 quantized: bool = False):
         super().__init__()
-        self.conv0 = Conv(cin, channels, 3)
-        self.conv1 = Conv(channels, channels, 3)
-        self.conv2 = Conv(channels, channels, 3)
-        self.post_up = Conv(channels, channels, 3)
-        self.proto_out = Conv(channels, num_prototypes, 1)
+        q = quantized
+        self.conv0 = make_conv(q, cin, channels, 3)
+        self.conv1 = make_conv(q, channels, channels, 3)
+        self.conv2 = make_conv(q, channels, channels, 3)
+        self.post_up = make_conv(q, channels, channels, 3)
+        self.proto_out = make_conv(q, channels, num_prototypes, 1)
 
     def forward(self, p3: torch.Tensor) -> torch.Tensor:
         x = p3

@@ -45,18 +45,27 @@ class Yolact(nn.Module):
         super().__init__()
         if cfg.backbone != "mobilenetv2":
             raise ValueError(f"backbone {cfg.backbone!r} is not ported yet")
+        if cfg.qat:
+            raise ValueError("ModelConfig.qat is not ported to tod_tpu_torch yet "
+                             "(ROADMAP.md B, M14: training (QAT))")
         self.cfg = cfg
-        self.MobileNetV2_0 = MobileNetV2(cfg.width_mult)
-        self.FPN_0 = FPN(self.MobileNetV2_0.out_channels, cfg.fpn_channels, cfg.fpn_levels)
-        self.ProtoNet_0 = ProtoNet(cfg.fpn_channels, cfg.num_prototypes, cfg.proto_channels)
+        q = cfg.quantized
+        self.MobileNetV2_0 = MobileNetV2(cfg.width_mult, q)
+        self.FPN_0 = FPN(self.MobileNetV2_0.out_channels, cfg.fpn_channels, cfg.fpn_levels, q)
+        self.ProtoNet_0 = ProtoNet(cfg.fpn_channels, cfg.num_prototypes, cfg.proto_channels, q)
         self.PredictionHead_0 = PredictionHead(
             cfg.fpn_channels, cfg.det_num_classes, cfg.num_anchors,
-            cfg.num_prototypes, cfg.head_channels,
+            cfg.num_prototypes, cfg.head_channels, q,
         )
-        self.SemanticHead_0 = SemanticHead(cfg.fpn_channels, cfg.num_classes)
+        self.SemanticHead_0 = SemanticHead(cfg.fpn_channels, cfg.num_classes, q)
 
     @property
     def compute_dtype(self) -> torch.dtype:
+        """The activations' type: the float model's weights' (a model cast
+        with ``.to`` computes in that type); ``ModelConfig.dtype`` in an int8
+        model, whose s8, f32 and bf16 tensors do not tell it."""
+        if self.cfg.quantized:
+            return getattr(torch, self.cfg.dtype)
         return self.PredictionHead_0.tower.weight.dtype
 
     def forward(self, x: torch.Tensor) -> YolactOutputs:

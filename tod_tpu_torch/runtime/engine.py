@@ -67,6 +67,8 @@ from tod_tpu_torch.geometry.fusion import (
     occupancy_map,
 )
 from tod_tpu_torch.kernels.track import track_banks
+from tod_tpu_torch.models.prepare import prepare_int8_params
+from tod_tpu_torch.models.qconv import is_prepared, load_prepared
 from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
 from tod_tpu_torch.ops.cc_labels import connected_components
@@ -81,6 +83,7 @@ from tod_tpu_torch.ops.preprocess import (
 from tod_tpu_torch.planner.api import host_backend, materialize_path, plan_from_height
 from tod_tpu_torch.planner.dijkstra import start_node_yx
 from tod_tpu_torch.planner.relax import plan_on_device
+from tod_tpu_torch.runtime.frame_source import SyntheticSource
 from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
 from tod_tpu_torch.track.tracker import init_tracks
 
@@ -92,15 +95,43 @@ def serving_model(cfg: PipelineConfig, params: Mapping[str, torch.Tensor] | None
                   device: torch.device) -> tuple[Yolact, torch.dtype, torch.Tensor]:
     """``(model, compute dtype, anchors)`` of ``cfg.model`` on ``device``,
     loaded from the state dict ``params`` (the pinned weights when None);
-    shared by :class:`Engine` and the multistream engine."""
+    shared by :class:`Engine` and the multistream engine.  With
+    ``ModelConfig.quantized`` a float state dict is prepared for int8 first
+    (``_calibrate_int8``), a prepared one is served as it is, and the model
+    keeps each tensor's own type (s8 kernels, f32 scales and biases)."""
     mcfg = cfg.model
     dtype = getattr(torch, mcfg.dtype)
     model = Yolact(mcfg)
     state = load_pinned(cfg=mcfg) if params is None else params
-    check_state(model, state)
-    model.load_state_dict(state)
-    model.to(device=device, dtype=dtype).eval()
+    if mcfg.quantized:
+        if not is_prepared(state):
+            state = _calibrate_int8(cfg, state, device)
+        load_prepared(model, state)
+        model.to(device=device).eval()
+    else:
+        check_state(model, state)
+        model.load_state_dict(state)
+        model.to(device=device, dtype=dtype).eval()
     return model, dtype, torch.from_numpy(generate_anchors(mcfg)).to(device)
+
+
+def _calibrate_int8(cfg: PipelineConfig, state: Mapping[str, torch.Tensor],
+                    device: torch.device, n_calib: int = 4) -> dict[str, torch.Tensor]:
+    """The static int8 state dict of the folded float ``state``: ``n_calib``
+    synthetic frames (seed 101, the training distribution) preprocessed at
+    the model's input size in its dtype run through the dynamic branch of a
+    quantized model on ``device`` (on the card, the int8 kernel), then the
+    quantization (``models/prepare.py``)."""
+    mcfg = cfg.model
+    dtype = getattr(torch, mcfg.dtype)
+    model = Yolact(mcfg)
+    check_state(model, state)
+    model.to(device=device).eval()
+    src = SyntheticSource(cfg.camera, seed=101, n_frames=n_calib)
+    batches = [preprocess_frame(torch.from_numpy(f.rgb).to(device), mcfg.input_size, dtype)
+               for f in src.frames()]
+    return prepare_int8_params(model, {k: v.to(device) for k, v in state.items()}, batches,
+                               quantize_depthwise=mcfg.quantize_depthwise)
 
 
 class Engine:
@@ -153,6 +184,12 @@ class Engine:
         self.fps = FPSMeter()
         self.restarts = 0
         self._abort = False
+
+    def _prepare_int8(self, state: Mapping[str, torch.Tensor],
+                      n_calib: int = 4) -> dict[str, torch.Tensor]:
+        """The JAX engine's shim: ``_calibrate_int8`` for this engine's
+        configuration and device."""
+        return _calibrate_int8(self.cfg, state, self.device, n_calib)
 
     @property
     def last_sweeps(self) -> int | None:
