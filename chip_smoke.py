@@ -17,7 +17,8 @@ Phases, each printed as it ends:
    N = 1, 4 and 16 and over a 64-step sequence of 4 banks with births,
    deaths, coasting and contended gates; the int8 convolution bit for bit
    at every distinct conv site of the 256x320 forward at batch 1 and 16, in
-   bf16 and f32, with per-sample scales, and past 2^24), and its device time (CUDA
+   bf16 and f32, with per-sample scales, at the shapes its tiling makes
+   risky, twice in a row at its largest split, and past 2^24), and its device time (CUDA
    events, median of 50 calls after a warm-up, enqueued behind a sleep
    kernel) beside the plain version's and a library call's;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
@@ -980,16 +981,53 @@ def qconv_inputs(torch, gen, device, b, site, dtype):
     return x, kq, ws, sx, bias
 
 
+# the shapes the dense kernel's tiling makes risky: (batch, input (C, H, W),
+# OIHW kernel shape, stride, ConvBN site)
+QCONV_EDGES = {
+    "M below one tile (P7)": (1, (128, 2, 3), (128, 128, 3, 3), 1, False),
+    "M below one tile, stride 2 (P6 -> P7)": (1, (128, 4, 5), (288, 128, 3, 3), 2, False),
+    "K not a multiple of a stage (1x1)": (1, (144, 9, 11), (24, 144, 1, 1), 1, True),
+    "K not a multiple of a stage (3x3)": (1, (40, 6, 7), (64, 40, 3, 3), 1, False),
+    "Cout not a multiple of the N tile": (1, (128, 5, 6), (300, 128, 3, 3), 1, False),
+    "stride 2 on odd sizes": (1, (128, 5, 7), (128, 128, 3, 3), 2, False),
+    "stride 2 on odd sizes (1x1)": (2, (64, 9, 7), (96, 64, 1, 1), 2, True),
+    "Cin < 32 (stem, odd sizes)": (2, (3, 17, 23), (32, 3, 3, 3), 2, True),
+    "Cin < 32 (3x3, flat K = 144)": (1, (16, 7, 9), (40, 16, 3, 3), 1, False),
+    "Cin < 32 (1x1)": (1, (24, 9, 10), (144, 24, 1, 1), 1, True),
+    "the largest split": (1, (224, 4, 5), (128, 224, 3, 3), 1, False),  # 8 splits of 2 stages
+    "tiles across the batch": (3, (32, 7, 9), (64, 32, 3, 3), 1, False),
+}
+
+
+def hold_qconv(torch, gen, device, b, site, dtype, divide, what) -> None:
+    """One call of the int8 kernel against ``plain_qconv``, bit for bit."""
+    from tod_tpu_torch.kernels.qconv import pack_kernel, plain_qconv, qconv
+
+    _, _, stride, groups, bn = site
+    x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, b, site, dtype)
+    packed = pack_kernel(kq) if groups == 1 else None
+    y = qconv(x, kq, ws, sx, bias, stride, groups, bn, divide, packed)
+    want = plain_qconv(x, kq, ws, sx, bias, stride, groups, bn, divide)
+    if not torch.equal(y, want):
+        d = (y.float() - want.float()).abs()
+        raise AssertionError(f"qconv disagrees at {what} {site} batch {b} {dtype} divide "
+                             f"{divide}: {int((d > 0).sum())} values, max {d.max()}")
+
+
 def check_qconv(torch, np, rng, device):
     """The int8 convolution kernel against its plain version on the card,
     bit for bit: every distinct conv site of the 256x320 forward (the
     depthwise ones as quantized depthwise sites) at batch 1 and 16 in bf16,
     at batch 1 in f32, with one scale per sample, the static quantize
-    (x * (1 / sx)) and at batch 16 also the calibration's (x / sx); then a
+    (x * (1 / sx)) and at batch 16 also the calibration's (x / sx); the
+    shapes the dense kernel's tiling makes risky (``QCONV_EDGES``) in both
+    types and both quantize forms; the largest split twice in a row; then a
     site whose int32 sums pass 2^24.  Timed at the ProtoNet 3x3 site beside
     its plain version, ``torch._int_mm`` on the im2col'd operands and the
-    bf16 cuDNN conv, and at every site of the forward."""
-    from tod_tpu_torch.kernels.qconv import plain_qconv, qconv
+    bf16 cuDNN conv, and at every site of the forward (the dense and the
+    depthwise sums apart)."""
+    from tod_tpu_torch.kernels import qconv as qk
+    from tod_tpu_torch.kernels.qconv import pack_kernel, plain_qconv, qconv
 
     gen = torch.Generator().manual_seed(13)
     sites = forward_conv_sites(torch, np)
@@ -998,35 +1036,49 @@ def check_qconv(torch, np, rng, device):
         f"{n_dense} dense conv calls a forward")
     checked = 0
     for site in sites:
-        _, _, stride, groups, bn = site
         for b, dtype, modes in ((1, torch.bfloat16, (False,)), (16, torch.bfloat16, (False, True)),
                                 (1, torch.float32, (False,))):
-            x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, b, site, dtype)
             for divide in modes:
-                y = qconv(x, kq, ws, sx, bias, stride, groups, bn, divide)
-                want = plain_qconv(x, kq, ws, sx, bias, stride, groups, bn, divide)
-                if not torch.equal(y, want):
-                    d = (y.float() - want.float()).abs()
-                    raise AssertionError(f"qconv disagrees at {site} batch {b} {dtype} divide "
-                                         f"{divide}: {int((d > 0).sum())} values, max {d.max()}")
+                hold_qconv(torch, gen, device, b, site, dtype, divide, "a forward site")
                 checked += 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for what, (b, chw, wshape, stride, bn) in QCONV_EDGES.items():
+        site = (chw, wshape, stride, 1, bn)
+        t = qk.qconv_tiling(b, *chw, wshape[0], wshape[2], stride, sms)
+        for dtype in (torch.bfloat16, torch.float32):
+            for divide in (False, True):
+                hold_qconv(torch, gen, device, b, site, dtype, divide, what)
+                checked += 1
+        log(f"  qconv edge case {what}: batch {b} {chw} -> {wshape}, stride {stride}: "
+            f"{t.m_tiles} M x {t.n_tiles} N tiles of {t.bn}, {t.k_steps} K steps in "
+            f"{t.n_stages} stages, {t.splits} splits of {t.stages_per_split}: exact")
+    b, chw, wshape, stride, bn = QCONV_EDGES["the largest split"]
+    site = (chw, wshape, stride, 1, bn)
+    x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, b, site, torch.bfloat16)
+    packed = pack_kernel(kq)
+    want = plain_qconv(x, kq, ws, sx, bias, stride, 1, bn)
+    twice = [qconv(x, kq, ws, sx, bias, stride, 1, bn, packed=packed) for _ in range(2)]
+    if not all(torch.equal(y, want) for y in twice):  # nothing is left over from a call
+        raise AssertionError("two calls in a row at the largest split disagree")
     # every product +127 x +127 at K = 1152: sums of 18,580,608 > 2^24
     x = torch.full((2, 128, 32, 40), 50.0, device=device)
     kq = torch.full((128, 128, 3, 3), 127, dtype=torch.int8, device=device)
     ones = torch.full((128,), 1e-3, device=device)
     sx = torch.tensor([0.01, 0.02], device=device)
-    big = qconv(x, kq, ones, sx, ones, 1, 1)
+    big = qconv(x, kq, ones, sx, ones, 1, 1, packed=pack_kernel(kq))
     if not torch.equal(big, plain_qconv(x, kq, ones, sx, ones, 1, 1)):
         raise AssertionError("qconv disagrees where the int32 sums pass 2^24")
     torch.cuda.synchronize()
-    log(f"  qconv: {checked} site x batch x dtype x quantize cases and one with sums of "
-        f"{1152 * 127 * 127} > 2^24 equal to the plain version bit for bit (tol exact)")
+    log(f"  qconv: {checked} site x batch x dtype x quantize cases, two calls in a row at "
+        f"the largest split and one with sums of {1152 * 127 * 127} > 2^24 equal to the "
+        f"plain version bit for bit (tol exact)")
 
     # the ProtoNet 3x3 site at batch 1, bf16
     site = ((128, 32, 40), (128, 128, 3, 3), 1, 1, False)
     x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, 1, site, torch.bfloat16)
+    packed = pack_kernel(kq)
     sx0 = sx[0]
-    call = lambda: qconv(x, kq, ws, sx0, bias, 1, 1)  # noqa: E731
+    call = lambda: qconv(x, kq, ws, sx0, bias, 1, 1, packed=packed)  # noqa: E731
     ms, _ = time_ms(call, torch)
     plain_ms, _ = time_ms(lambda: plain_qconv(x, kq, ws, sx, bias, 1, 1), torch, n=10)
     m, k, n = 32 * 40, 128 * 9, 128
@@ -1042,30 +1094,38 @@ def check_qconv(torch, np, rng, device):
     # x read once (bf16), y written once (bf16), the s8 kernel, scales and bias
     n_bytes = 2 * 128 * 32 * 40 * 2 + 128 * k + 3 * 128 * 4
     bms, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS)
-    log(f"  qconv ProtoNet 3x3 (1, 128, 32, 40) -> 128, K = {k}, bf16: kernel {ms:.5f} ms, "
-        f"plain {plain_ms:.5f}, torch._int_mm (M={m}, K={k}, N={n}) {int_mm_ms:.5f}, bf16 "
-        f"cuDNN conv {cudnn_ms:.5f}, bound {bms:.6f} ({by})")
+    t = qk.qconv_tiling(1, 128, 32, 40, 128, 3, 1, sms)
+    log(f"  qconv ProtoNet 3x3 (1, 128, 32, 40) -> 128, K = {k}, bf16 ({t.blocks} blocks: "
+        f"{t.m_tiles} M tiles x {t.splits} splits): kernel {ms:.5f} ms, plain {plain_ms:.5f}, "
+        f"torch._int_mm (M={m}, K={k}, N={n}) {int_mm_ms:.5f}, bf16 cuDNN conv "
+        f"{cudnn_ms:.5f}, bound {bms:.6f} ({by})")
 
-    total, bound_total = 0.0, 0.0
+    totals = {1: [0.0, 0.0, 0], 0: [0.0, 0.0, 0]}  # dense / depthwise: ms, bound ms, calls
     for site, calls in sites.items():
         (c, h, w), wshape, stride, groups, bn = site
         xs, kqs, wss, sxs, bs = qconv_inputs(torch, gen, device, 1, site, torch.bfloat16)
-        t_ms, _ = time_ms(lambda: qconv(xs, kqs, wss, sxs, bs, stride, groups, bn), torch, n=20)
+        ps = pack_kernel(kqs) if groups == 1 else None
+        t_ms, _ = time_ms(lambda: qconv(xs, kqs, wss, sxs, bs, stride, groups, bn, False, ps),
+                          torch, n=20)
         ho, wo = -(-h // stride), -(-w // stride)
         kk = wshape[1] * wshape[2] * wshape[3]
         site_bytes = 2 * c * h * w + 2 * wshape[0] * ho * wo + kqs.numel()
-        total += calls * t_ms
-        bound_total += calls * bound_ms(site_bytes, 2.0 * ho * wo * wshape[0] * kk, INT8_OPS)[0]
-    log(f"  qconv at every site of the 256x320 forward, batch 1, bf16 (dense and depthwise, "
-        f"by calls): {total:.4f} ms of kernel time by events against a {bound_total:.5f} ms bound")
+        total = totals[int(groups == 1)]
+        total[0] += calls * t_ms
+        total[1] += calls * bound_ms(site_bytes, 2.0 * ho * wo * wshape[0] * kk, INT8_OPS)[0]
+        total[2] += calls
+    log(f"  qconv at the dense sites of the 256x320 forward (the default --int8 path), "
+        f"batch 1, bf16, by calls: {totals[1][2]} launches, {totals[1][0]:.4f} ms of kernel "
+        f"time by events against a {totals[1][1]:.5f} ms bound")
+    log(f"  qconv at the depthwise sites (quantize_depthwise only), by calls: {totals[0][2]} "
+        f"launches, {totals[0][0]:.4f} ms by events against a {totals[0][1]:.5f} ms bound")
     return {
         "name": "qconv", "route": "cuda", "source": "tod_tpu_torch/csrc/qconv.cu",
         "replaces": "tod_tpu/models/qconv.py:149",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
-        "own": (call, "qconv_dense_kernel"),
+        "own": (call, "qconv_wgmma_kernel"),
     }
-
 
 
 def reset(counters) -> None:

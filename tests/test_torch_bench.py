@@ -446,5 +446,5 @@ class TestProfile:
         assert set(our_kernels()) == {
             "bump_kernel", "bump_memo_kernel", "cc_flatten_kernel", "cc_init_kernel",
             "cc_merge_kernel", "connections_kernel", "mask_assembly_kernel",
-            "path_walk_kernel", "qconv_dense_kernel", "qconv_depthwise_kernel",
+            "path_walk_kernel", "qconv_depthwise_kernel", "qconv_wgmma_kernel",
             "quantize_colmax_kernel", "quantize_kernel", "relax_kernel", "track_kernel"}

@@ -15,6 +15,7 @@ without it.
 CLI, on the card::
 
     python -m tod_tpu_torch.bench.profiling                    # batch-16 VGA forward
+    python -m tod_tpu_torch.bench.profiling --int8             # the same, int8 model
     python -m tod_tpu_torch.bench.profiling --qvga-serve [--plan]  # the QVGA serve step
 """
 
@@ -167,20 +168,22 @@ def print_report(report: dict, title: str) -> None:
     print(f"-- longest idle gaps (ms): {report['gaps_ms']}")
 
 
-def profile_forward(batch: int = 16, device=None) -> dict:
-    """Trace the flagship forward at batch ``batch``, bf16, pinned weights."""
-    from tod_tpu_torch.bench.configs import _model, device_info
+def profile_forward(batch: int = 16, device=None, int8: bool = False) -> dict:
+    """Trace the flagship forward at batch ``batch``, bf16, pinned weights;
+    with ``int8``, config 13's static int8 model (``configs.int8_model``)."""
+    from tod_tpu_torch.bench.configs import _model, device_info, int8_model
     from tod_tpu_torch.core.config import ModelConfig
     from tod_tpu_torch.core.device import resolve_device
 
     dev = resolve_device(device)
     hw = (480, 640)
-    model = _model(ModelConfig(input_size=hw), dev)
+    mcfg = ModelConfig(input_size=hw, quantized=int8)
+    model = int8_model(mcfg, dev) if int8 else _model(mcfg, dev)
     x0 = torch.zeros((batch, *hw, 3), dtype=model.compute_dtype, device=dev)
     report = top_ops(capture_trace(lambda: model(x0).loc, dev), dev)
-    print_report(report, f"batch-{batch} {hw[0]}x{hw[1]} forward")
-    return {"profile": f"forward_b{batch}_{hw[0]}x{hw[1]}", **report,
-            "device": device_info(dev)}
+    name = f"forward_b{batch}_{hw[0]}x{hw[1]}" + ("_int8" if int8 else "")
+    print_report(report, name.replace("_", " "))
+    return {"profile": name, **report, "device": device_info(dev)}
 
 
 def profile_qvga_serve(plan: bool = False, device=None) -> dict:
@@ -213,13 +216,14 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--plan", action="store_true", help="the frame+plan step")
     p.add_argument("--train", action="store_true", help="the train step")
     p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--int8", action="store_true", help="the forward of the int8 model")
     args = p.parse_args(argv)
     if args.train:
         raise SystemExit("--train is not ported to tod_tpu_torch yet (ROADMAP.md B, M14: training)")
     if args.qvga_serve or args.plan:
         report = profile_qvga_serve(plan=args.plan, device=device)
     else:
-        report = profile_forward(batch=args.batch, device=device)
+        report = profile_forward(batch=args.batch, device=device, int8=args.int8)
     print(json.dumps(report))
     return 0
 

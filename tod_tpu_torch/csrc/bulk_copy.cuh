@@ -7,6 +7,10 @@
 // bulk_expect and issues them with bulk_load; every thread that reads the
 // data calls bulk_wait(bar, 0) first.  Each copy needs 16-byte-aligned
 // addresses and a size that is a multiple of 16.
+//
+// A ring of stages reuses its barriers: bar_init sets how many arrivals
+// complete a phase, bar_arrive is one of them, and bulk_wait(bar, parity)
+// waits for the phase of that parity.
 
 #pragma once
 
@@ -18,11 +22,20 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A barrier that completes its phase 0 on one arrival and the bytes announced.
-__device__ __forceinline__ void bulk_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+// A barrier whose phases complete on ``count`` arrivals and the bytes announced.
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A barrier that completes its phase 0 on one arrival and the bytes announced.
+__device__ __forceinline__ void bulk_init(uint64_t* bar) { bar_init(bar, 1); }
+
+// One arrival, with no bytes.
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // The one arrival, with the bytes the copies will deliver.

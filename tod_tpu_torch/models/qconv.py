@@ -6,12 +6,16 @@ site of a model built with ``ModelConfig.quantized``, as the JAX package's
 branch, as the JAX tree does:
 
 - **dynamic** (``weight`` f32 and ``bias``): the weights quantized per call
-  and per output channel, the activations per sample with the amax over the
-  sample's own axes; calibration runs through it and records each site's
-  ``max|x|``, max-reduced over its calls (the JAX ``sow``);
+  and per output channel (and a dense site's packed), the activations per
+  sample with the amax over the sample's own axes; calibration runs
+  through it and records each site's ``max|x|``, max-reduced over its
+  calls (the JAX ``sow``);
 - **static** (``kernel_q`` s8, ``w_scale`` (cout,) f32, ``act_scale`` ()
   f32 and ``bias``): the prepared serving site, one launch of the int8
-  kernel (``kernels/qconv.py``);
+  kernel (``kernels/qconv.py``), which reads a dense site's weights from
+  ``packed``, ``pack_kernel``'s layout of ``kernel_q``: a buffer outside
+  the state dict, packed again whenever a state dict is loaded into the
+  site and moved with the module;
 - **float** (``weight`` in bfloat16, a depthwise kernel that the
   preparation cast): a plain convolution of the values in the kernel's
   type.
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tod_tpu_torch.kernels.qconv import qconv
+from tod_tpu_torch.kernels.qconv import pack_kernel, qconv
 from tod_tpu_torch.models.conv import Conv, same_pads
 from tod_tpu_torch.ops.ieee import rdiv
 
@@ -76,7 +80,7 @@ class QConv(nn.Module):
         from ``load_state_dict``)."""
         if branch not in BRANCHES:
             raise ValueError(f"unknown branch {branch!r}")
-        for name in ("weight", "kernel_q", "w_scale", "act_scale"):
+        for name in ("weight", "kernel_q", "w_scale", "act_scale", "packed"):
             if hasattr(self, name):
                 delattr(self, name)
         dev = self.bias.device
@@ -84,10 +88,19 @@ class QConv(nn.Module):
             self.register_buffer("kernel_q", torch.empty(self.shape, dtype=torch.int8, device=dev))
             self.register_buffer("w_scale", torch.empty(self.shape[0], device=dev))
             self.register_buffer("act_scale", torch.empty((), device=dev))
+            self.register_buffer("packed", None, persistent=False)
         else:
             dtype = torch.float32 if branch == "dynamic" else serve_dtype
             self.weight = nn.Parameter(torch.empty(self.shape, dtype=dtype, device=dev))
         self.branch = branch
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """Load as ``nn.Module`` does, then pack a static dense site's
+        ``kernel_q`` again, so that ``packed`` always holds the loaded
+        weights."""
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if self.branch == "static" and self.groups == 1:
+            self.packed = pack_kernel(self.kernel_q)
 
     def _pad(self, x: torch.Tensor) -> torch.Tensor:
         ph = same_pads(x.shape[-2], self.k, self.stride)
@@ -108,7 +121,7 @@ class QConv(nn.Module):
         x = x.contiguous()
         if self.branch == "static":
             return qconv(x, self.kernel_q, self.w_scale, self.act_scale, self.bias,
-                         self.stride, self.groups, self.bn)
+                         self.stride, self.groups, self.bn, packed=self.packed)
         if self.branch == "float":
             return self._float_serve(x)
         wq, sw = quantize_symmetric(self.weight.float(), dim=(1, 2, 3))
@@ -117,8 +130,9 @@ class QConv(nn.Module):
             top = amax.max()
             self.amax = top if self.amax is None else torch.maximum(self.amax, top)
         sx = _scale(amax, 127)
+        packed = pack_kernel(wq) if self.groups == 1 else None
         return qconv(x, wq, sw.view(-1).contiguous(), sx, self.bias, self.stride,
-                     self.groups, self.bn, divide=True)
+                     self.groups, self.bn, divide=True, packed=packed)
 
 
 def make_conv(quantized: bool, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
@@ -148,7 +162,8 @@ def is_prepared(state: Mapping[str, torch.Tensor]) -> bool:
 
 
 def load_prepared(model: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
-    """Set each site's branch from ``state`` and load it (strict)."""
+    """Set each site's branch from ``state`` and load it (strict; a static
+    dense site packs its kernel as it loads)."""
     from tod_tpu_torch.core.weights import check_state
 
     for site, m in conv_sites(model).items():

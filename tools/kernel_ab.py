@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Serve and stream with an older commit's K1 and K2 and with this tree's, in
-turns in one process, to tell the two kernels' effect on the host-clock
-metrics apart from the host's run-to-run noise.
+"""An older commit's kernels beside this tree's, in one process on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``python3 tools/kernel_ab.py OLD_ROOT [ROUNDS]``, where OLD_ROOT is a
-checkout of a commit from before K1 and K2 were redesigned (for example
-unpacked by ``git archive``).  Its ``tod_tpu_torch/csrc/mask_assembly.cu``
+``python3 tools/kernel_ab.py OLD_ROOT [ROUNDS]`` (K1 and K2) or
+``python3 tools/kernel_ab.py --qconv OLD_ROOT`` (the int8 convolution),
+where OLD_ROOT is a checkout of a commit from before the kernels were
+redesigned (for example unpacked by ``git archive``).
+
+K1 and K2: serve and stream with the old kernels and with this tree's, in
+turns, to tell the two kernels' effect on the host-clock metrics apart
+from the host's run-to-run noise.  Its ``tod_tpu_torch/csrc/mask_assembly.cu``
 and ``connections.cu`` are built with this tree's nvcc flags into
 ``build/tod_tpu_torch/ab/`` and called through their C interfaces
 (``tod_mask_assembly(protos, coeffs, boxes, out, b, n, hm, wm, k, stream)``,
@@ -29,6 +32,23 @@ Before the rounds the old kernels are held against the new ones (K1 within
 2e-6 with an identical crop, K2's planes bit for bit, NaN included), and
 each arm's launches are counted, so that a round ran the kernels it names.
 The last line is a JSON object with every reading by arm and metric.
+
+The int8 convolution: the old ``tod_tpu_torch/csrc/qconv.cu`` (its
+``tod_qconv(x, wq, w_scale, sx, sx_stride, bias, y, dtype, b, cin, h, w,
+cout, k, stride, pad_t, pad_l, ho, wo, groups, divide, bn, stream)`` entry,
+the OIHW kernel as it is) beside this tree's ``kernels.qconv.qconv`` with
+the packed kernel:
+1. the two held against each other, bit for bit, at every dense conv site
+   of the default 256x320 forward (batch 1, bf16);
+2. the ProtoNet 3x3 site, (1, 128, 32, 40) -> 128, K = 1152, bf16: each
+   arm's CUDA-event time (``chip_smoke.time_ms``) in turns old, new, new,
+   old, and each arm's own device time (``chip_smoke.own_ms``), beside
+   ``torch._int_mm`` on the im2col'd operands, the bf16 cuDNN conv and the
+   bound;
+3. the forward's dense sites, each timed by events and summed by its calls
+   (68 launches a forward), old, new, new, old.
+The last line is a JSON object with every reading and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -47,17 +67,21 @@ SIGNATURES = {
                       + [ctypes.c_void_p]),
     "connections": ("tod_connections", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]),
+    "qconv": ("tod_qconv", [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+              + [ctypes.c_int] * 15 + [ctypes.c_void_p]),
 }
+PROTONET = ((128, 32, 40), (128, 128, 3, 3), 1, 1, False)
 
 
-def build_old(old_root: pathlib.Path) -> dict:
-    """Compile the old commit's K1 and K2 sources side by side -> entry points."""
+def build_old(old_root: pathlib.Path, names) -> dict:
+    """Compile the old commit's sources of ``names`` side by side -> entry
+    points."""
     from tod_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ab"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in SIGNATURES:
+    for name in names:
         so = out / f"lib{name}_old.so"
         src = old_root / "tod_tpu_torch" / "csrc" / f"{name}.cu"
         jobs[name] = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
@@ -106,12 +130,118 @@ def old_wrappers(torch, fns):
     return assemble_crop_masks, connection_planes
 
 
+def old_qconv(torch, fn):
+    """The old int8 kernel behind this tree's ``qconv`` signature (dense
+    sites; the packed kernel is not read)."""
+    from tod_tpu_torch.kernels.qconv import DTYPES, _pads
+
+    def qconv(x, kq, ws, sx, bias, stride=1, groups=1, bn=False, divide=False, packed=None):
+        b, cin, h, w = x.shape
+        cout, _, k, _ = kq.shape
+        (pt, pb), (pl, pr) = _pads(x, k, stride)
+        ho, wo = (h + pt + pb - k) // stride + 1, (w + pl + pr - k) // stride + 1
+        y = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
+        if sx.dim() == 0:
+            sx = sx.reshape(1).expand(b)
+        err = fn(x.data_ptr(), kq.data_ptr(), ws.data_ptr(), sx.data_ptr(),
+                 0 if sx.stride(0) == 0 else 1, bias.data_ptr(), y.data_ptr(), DTYPES[x.dtype],
+                 b, cin, h, w, cout, k, stride, pt, pl, ho, wo, groups, int(divide), int(bn),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old qconv launch failed: CUDA error {err}")
+        return y
+
+    return qconv
+
+
+def qconv_ab(old_root: pathlib.Path) -> int:
+    """The int8 convolution by the old commit's kernel and by this tree's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels.qconv import pack_kernel, qconv
+
+    smi = cs.nvidia_smi_line()
+    cs.log(smi)
+    _build.build(["qconv"])
+    arms = {"old": old_qconv(torch, build_old(old_root, ["qconv"])["qconv"]), "new": qconv}
+    device = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(14)
+
+    sites = {site: n for site, n in cs.forward_conv_sites(torch, np).items() if site[3] == 1}
+    inputs = {}
+    for site in sites:
+        x, kq, ws, sx, bias = cs.qconv_inputs(torch, gen, device, 1, site, torch.bfloat16)
+        inputs[site] = (x, kq, ws, sx[0], bias, site[2], 1, site[4], False, pack_kernel(kq))
+        got = {name: fn(*inputs[site]) for name, fn in arms.items()}
+        if not torch.equal(got["old"], got["new"]):
+            raise AssertionError(f"the old and new kernels disagree at {site}")
+    cs.log(f"  old and new kernels equal bit for bit at the {len(sites)} distinct dense sites "
+           f"({sum(sites.values())} calls a forward)")
+
+    proto = inputs[PROTONET]
+    events = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        events[name].append(cs.time_ms(lambda fn=arms[name]: fn(*proto), torch)[0])
+    floor, own = cs.own_ms(torch, [(lambda: arms["old"](*proto), "qconv_dense_kernel"),
+                                   (lambda: arms["new"](*proto), "qconv_wgmma_kernel")])
+    x, kq = proto[0], proto[1]
+    m, k, n = 32 * 40, 128 * 9, 128
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=device)
+    bmat = kq.reshape(n, k).t()
+    try:
+        int_mm_ms = cs.time_ms(lambda: torch._int_mm(a, bmat), torch)[0]
+    except RuntimeError:
+        bmat = bmat.contiguous()
+        int_mm_ms = cs.time_ms(lambda: torch._int_mm(a, bmat), torch)[0]
+    wb = kq.to(torch.bfloat16)
+    cudnn_ms = cs.time_ms(lambda: torch.nn.functional.conv2d(x, wb, None, 1, 1), torch)[0]
+    bound, by = cs.bound_ms(2 * 128 * 32 * 40 * 2 + 128 * k + 3 * 128 * 4, 2.0 * m * n * k,
+                            cs.INT8_OPS)
+    cs.log(f"  ProtoNet 3x3 (1, 128, 32, 40) -> 128, bf16, events old / new / new / old: "
+           f"{events['old'][0]:.5f} / {events['new'][0]:.5f} / {events['new'][1]:.5f} / "
+           f"{events['old'][1]:.5f} ms; own old {cs.fmt(own[0])}, new {cs.fmt(own[1])} (an "
+           f"empty kernel {cs.fmt(floor)}); torch._int_mm {int_mm_ms:.5f}, bf16 cuDNN conv "
+           f"{cudnn_ms:.5f}, bound {bound:.6f} ({by})")
+
+    forward = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        total = 0.0
+        for site, calls in sites.items():
+            total += calls * cs.time_ms(lambda fn=arms[name], s=site: fn(*inputs[s]), torch,
+                                        n=20)[0]
+        forward[name].append(total)
+    cs.log(f"  the forward's {sum(sites.values())} dense launches by events, summed by calls, "
+           f"old / new / new / old: {forward['old'][0]:.4f} / {forward['new'][0]:.4f} / "
+           f"{forward['new'][1]:.4f} / {forward['old'][1]:.4f} ms")
+    cs.log(smi)
+    print(json.dumps({
+        "device": smi, "protonet": {"events_ms": events, "own_ms": {"old": own[0], "new": own[1]},
+                                    "empty_own_ms": floor, "int_mm_ms": int_mm_ms,
+                                    "cudnn_bf16_ms": cudnn_ms, "bound_ms": bound},
+        "forward_dense_ms": forward, "dense_launches": sum(sites.values())}))
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    if not 1 <= len(argv) <= 2:
-        print("usage: kernel_ab.py OLD_ROOT [ROUNDS]", file=sys.stderr)
+    qconv_mode = argv[:1] == ["--qconv"]
+    if qconv_mode:
+        argv = argv[1:]
+    if not 1 <= len(argv) <= (1 if qconv_mode else 2):
+        print("usage: kernel_ab.py OLD_ROOT [ROUNDS] | kernel_ab.py --qconv OLD_ROOT",
+              file=sys.stderr)
         return 2
     old_root, rounds = pathlib.Path(argv[0]).resolve(), int(argv[1]) if len(argv) > 1 else 8
     sys.path.insert(0, str(ROOT))
+    if qconv_mode:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("kernel_ab: CUDA is not available", file=sys.stderr)
+            return 2
+        return qconv_ab(old_root)
     import numpy as np
     import torch
 
@@ -131,7 +261,7 @@ def main(argv: list[str]) -> int:
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     print(chip_smoke.nvidia_smi_line(), flush=True)
-    old_k1, old_k2 = old_wrappers(torch, build_old(old_root))
+    old_k1, old_k2 = old_wrappers(torch, build_old(old_root, ["mask_assembly", "connections"]))
     new_k1, new_k2 = mask_assembly.assemble_crop_masks, connections.connection_planes
     arms = {"old": (old_k1, old_k2), "new": (new_k1, new_k2)}
 
