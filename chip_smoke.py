@@ -12,10 +12,12 @@ Phases, each printed as it ends:
    walk, the terrain dilation K3/K4, the stochastic quantizer K5, the
    connected-components labels, the tracker) against its plain torch version
    on the card, at the main path's shapes and ragged ones (the cc kernel bit
-   for bit at 64x64 and below, and at 480x640 and 479x641 against
-   ``scipy.ndimage.label``; the tracker bit for bit on random banks at
-   N = 1, 4 and 16 and over a 64-step sequence of 4 banks with births,
-   deaths, coasting and contended gates; the int8 convolution bit for bit
+   for bit at 97x131 and below, and at 480x640 and 479x641 against
+   ``scipy.ndimage.label``, among them masks bridged across its tile
+   borders by one pixel and a spiral; the tracker bit for bit on random
+   banks at N = 1, 4, 16 and 33, on banks whose costs tie, at other ball
+   counts and over a 64-step sequence of 4 banks with births, deaths,
+   coasting and contended gates; the int8 convolution bit for bit
    at every distinct conv site of the 256x320 forward at batch 1 and 16, in
    bf16 and f32, with per-sample scales, at the shapes its tiling makes
    risky, twice in a row at its largest split, and past 2^24), and its device time (CUDA
@@ -715,7 +717,10 @@ def check_k5(torch, np, rng, device):
     }
 
 
-CC_PARTS = ("cc_init_kernel", "cc_merge_kernel", "cc_flatten_kernel")
+# the cc kernel's three launches: the unions inside each tile in shared
+# memory, the edges across tile borders, the flatten
+CC_PARTS = ("cc_local_kernel", "cc_border_kernel", "cc_flatten_kernel")
+TRACK_KERNEL = "track_warp_kernel"
 
 
 def serpentine(np, h, w):
@@ -741,6 +746,46 @@ def cc_masks(np, gen, h, w):
     return {"random p=0.5": gen.random((h, w)) < 0.5, "serpentine": serpentine(np, h, w),
             "checkerboard": (np.indices((h, w)).sum(0) % 2).astype(bool),
             "full": np.ones((h, w), bool), "empty": np.zeros((h, w), bool)}
+
+
+def tile_bridges(np, gen, h, w, tile=32):
+    """Blobs inside the cc kernel's tiles, some tiles without, joined by
+    one-pixel lines lying exactly on tile rows (each tile's last row) and
+    tile columns (each tile's first column), cut into segments, with a
+    one-pixel stub from each blob to each line: every edge between two
+    tiles is a bridge one pixel wide."""
+    yy, xx = np.indices((h, w))
+    ly, lx = yy % tile, xx % tile
+    on = (gen.random((-(-h // tile), -(-w // tile))) < 0.7)[yy // tile, xx // tile]
+    m = on & (ly >= 3) & (ly < tile - 3) & (lx >= 3) & (lx < tile - 3)
+    m |= (ly == tile - 1) & ((xx // 5) % 4 != 0)
+    m |= (lx == 0) & ((yy // 3) % 5 != 0)
+    m |= on & (lx == 10) & (ly >= tile - 3) & (ly < tile - 1)  # blob to its tile's last row
+    m |= on & (ly == 10) & (lx >= 1) & (lx < 3)  # blob to its tile's first column
+    return m
+
+
+def spiral(np, h, w, gap=2):
+    """A square spiral of one-pixel lines ``gap`` apart, from the border
+    inward: one component that crosses every tile it passes many times."""
+    m = np.zeros((h, w), bool)
+    top, left, bottom, right = 0, 0, h - 1, w - 1
+    while top <= bottom and left <= right:
+        m[top, left:right + 1] = True
+        m[top:bottom + 1, right] = True
+        if bottom - top < gap or right - left < gap:
+            break
+        m[bottom, left:right + 1] = True
+        m[top + gap:bottom + 1, left] = True
+        top, left, bottom, right = top + gap, left + gap, bottom - gap, right - gap
+        if top <= bottom:
+            m[top, left - gap:left + 1] = True  # the turn inward
+    return m
+
+
+def tile_masks(np, gen, h, w):
+    """The masks that cross the cc kernel's tile borders on purpose."""
+    return {"tile bridges": tile_bridges(np, gen, h, w), "spiral": spiral(np, h, w)}
 
 
 def hold_cc(torch, np, mask, name, plain=True) -> None:
@@ -773,12 +818,12 @@ def check_cc(torch, np, rng, device):
     from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
 
     gen = np.random.default_rng(3)
-    for h, w in ((64, 64), (37, 53), (1, 1), (1, 64), (64, 1)):
-        for name, mask in cc_masks(np, gen, h, w).items():
+    for h, w in ((64, 64), (37, 53), (97, 131), (1, 1), (1, 64), (64, 1)):
+        for name, mask in {**cc_masks(np, gen, h, w), **tile_masks(np, gen, h, w)}.items():
             hold_cc(torch, np, mask, name)
     for h, w in ((480, 640), (479, 641)):
-        for name, mask in cc_masks(np, gen, h, w).items():
-            hold_cc(torch, np, mask, name, plain=name != "serpentine")
+        for name, mask in {**cc_masks(np, gen, h, w), **tile_masks(np, gen, h, w)}.items():
+            hold_cc(torch, np, mask, name, plain=name not in ("serpentine", "spiral"))
     # the main path's shape and kind of input: the balls of a synthetic frame
     cam = CameraConfig()
     f = synth_frame_numpy(0, 3, cam.height, cam.width)
@@ -791,7 +836,8 @@ def check_cc(torch, np, rng, device):
     # handful of integer operations a pixel (ALU_OPS)
     bms, by = bound_ms(5.0 * h * w, 8.0 * h * w, ALU_OPS)
     log(f"  cc_labels times at ({h},{w}), {int(balls.sum())} ball pixels: kernel_ms={ms:.5f} "
-        f"(three launches) plain_ms={plain_ms:.5f} (the propagation loop, a host read a sweep) "
+        f"(three launches; each one's own time in phase 11) plain_ms={plain_ms:.5f} (the "
+        f"propagation loop, a host read a sweep) "
         f"bound_ms={bms:.6f} ({by}); library: none (no one torch call labels components); "
         f"wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms")
     return {
@@ -826,6 +872,37 @@ def random_banks(np, gen, n, k=8, m=100):
     balls[..., 2] = gen.choice([0.0, 2.0, 3.0, 3.5, 20.0, 40.0], (n, m))
     balls[..., 2] *= gen.random((n, m)) < 0.3  # most slots empty, as in a scene
     return banks, balls
+
+
+def tie_banks(np, gen, n, k=8, m=100):
+    """Banks whose costs tie: tracks at rest on even integer cells (two may
+    share one), valid balls on integer cells between them (two may share
+    one), so that a ball lies as far from two tracks as a track from two
+    balls, and equal costs fall in different rows and columns: the flat
+    index decides every such round."""
+    banks = np.zeros((n, k, 10), np.float32)
+    banks[..., 0:2] = 2 * gen.integers(0, 6, (n, k, 2))
+    banks[..., 4] = banks[..., 6] = 1.0
+    banks[..., 7] = gen.integers(0, 6, (n, k))
+    banks[..., 9] = gen.random((n, k)) < 0.85
+    balls = np.zeros((n, m, 4), np.float32)
+    balls[..., 0:2] = gen.integers(-1, 12, (n, m, 2))
+    balls[..., 2] = np.where(gen.random((n, m)) < 0.3, 9.0, 0.0)
+    return banks, balls
+
+
+def tied_costs(np, banks, balls, cfg) -> int:
+    """Pairs of equal gated costs in one bank's matrix, across its rows or
+    its columns."""
+    pred = banks[..., 0:2] + banks[..., 2:4]
+    d2 = ((pred[:, :, None] - balls[:, None, :, 0:2]) ** 2).sum(-1)
+    ok = (banks[..., 9] > 0)[..., None] & (balls[:, None, :, 2] > cfg.min_pixels) \
+        & (d2 <= cfg.gate**2)
+    n = 0
+    for c, g in zip(d2, ok):
+        vals = c[g]
+        n += int(vals.size - np.unique(vals).size)
+    return n
 
 
 def track_sequence(np, gen, n, steps, m=100):
@@ -872,17 +949,26 @@ def sequence_events(np, banks, seq, cfg) -> dict:
 
 def check_track(torch, np, rng, device):
     """The tracker kernel against its plain version on the card: random
-    banks at N = 1, 4 and 16, then a 64-step sequence of 4 banks run side
-    by side; every field of the banks and the seeds bit for bit."""
+    banks at N = 1, 4, 16 and 33 (banks straddling a block), tie banks at
+    N = 1, 4 and 33, both also at other ball counts M, then a 64-step
+    sequence of 4 banks run side by side; every field of the banks and the
+    seeds bit for bit."""
     from tod_tpu_torch.core.config import TrackerConfig
     from tod_tpu_torch.kernels.track import plain_track_banks, track_banks
 
     cfg = TrackerConfig(enabled=True)
     gen = np.random.default_rng(12)
     worst = 0.0
-    for n in (1, 4, 16):
+    ties = 0
+    # M = 100 is the main path's (four columns a lane); 20 and 50 take the
+    # kernel's one- and two-column builds, 300 its build for any M
+    for n, kind, m in ((1, "random", 100), (4, "random", 100), (16, "random", 100),
+                       (33, "random", 100), (1, "tie", 100), (4, "tie", 100), (33, "tie", 100),
+                       (4, "random", 20), (4, "random", 50), (4, "random", 300),
+                       (4, "tie", 300)):
         for trial in range(4):
-            banks, balls = random_banks(np, gen, n)
+            banks, balls = (random_banks if kind == "random" else tie_banks)(np, gen, n, m=m)
+            ties += tied_costs(np, banks, balls, cfg) if kind == "tie" else 0
             card = torch.from_numpy(banks).to(device)
             b = torch.from_numpy(balls).to(device)
             want, want_seeds = plain_track_banks(card.clone(), b, cfg, 100)
@@ -892,11 +978,15 @@ def check_track(torch, np, rng, device):
             worst = max(worst, (card - want).abs().max().item(),
                         (seeds - want_seeds).abs().max().item())
             if not same:
-                raise AssertionError(f"the tracker kernel disagrees at N={n} trial {trial}: "
-                                     f"rows differing {int((card != want).any(-1).sum())}")
-        log(f"  track N={n}: 4 random banks and ball sets, banks and seeds equal to the plain "
-            f"version bit for bit (tol exact); active rows after the step "
+                raise AssertionError(f"the tracker kernel disagrees at N={n} ({kind}) trial "
+                                     f"{trial}: rows differing "
+                                     f"{int((card != want).any(-1).sum())}")
+        log(f"  track N={n}, M={m}: 4 {kind} banks and ball sets, banks and seeds equal to the "
+            f"plain version bit for bit (tol exact); active rows after the step "
             f"{int(card[..., 9].sum())} of {n * 8}")
+    log(f"  track tie banks: {ties} pairs of equal gated costs in their matrices")
+    if ties == 0:
+        raise AssertionError("the tie banks made no equal costs")
     n = 4
     seq_np = track_sequence(np, gen, n, TRACK_STEPS)
     seq = torch.from_numpy(seq_np).to(device)
@@ -916,7 +1006,7 @@ def check_track(torch, np, rng, device):
         raise AssertionError(f"the tracker sequence missed a kind of event: {ev}")
 
     times = {}
-    for n in (1, 4, 16):
+    for n in (1, 4, 16, 33):
         banks, balls = random_banks(np, gen, n)
         card = torch.from_numpy(banks).to(device)
         b = torch.from_numpy(balls).to(device)
@@ -937,7 +1027,7 @@ def check_track(torch, np, rng, device):
         "replaces": "tod_tpu/track/tracker.py:113",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "own": (lambda: track_banks(one, one_balls, cfg, 100), "track_kernel"),
+        "own": (lambda: track_banks(one, one_balls, cfg, 100), TRACK_KERNEL),
     }
 
 def forward_conv_sites(torch, np):
@@ -1238,7 +1328,8 @@ def stage_profile(torch, eng, packed, kernel_names) -> None:
         return
     rows = {name: (round(e.device_time_total / 1e3, 3), round(e.cpu_time_total / 1e3, 3))
             for name, e in stages.items()}
-    parts = {name: CC_PARTS if name == "cc_labels" else (f"{name}_kernel",) for name in kernel_names}
+    named = {"cc_labels": CC_PARTS, "track": (TRACK_KERNEL,)}
+    parts = {name: named.get(name, (f"{name}_kernel",)) for name in kernel_names}
     ours = {name: round(sum(e.time_range.elapsed_us() for e in events
                             if e.device_type == DeviceType.CUDA
                             and any(part in e.name for part in parts[name])) / 1e3, 4)

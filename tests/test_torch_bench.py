@@ -444,7 +444,7 @@ class TestProfile:
         from tod_tpu_torch.bench.profiling import our_kernels
 
         assert set(our_kernels()) == {
-            "bump_kernel", "bump_memo_kernel", "cc_flatten_kernel", "cc_init_kernel",
-            "cc_merge_kernel", "connections_kernel", "mask_assembly_kernel",
+            "bump_kernel", "bump_memo_kernel", "cc_border_kernel", "cc_flatten_kernel",
+            "cc_local_kernel", "connections_kernel", "mask_assembly_kernel",
             "path_walk_kernel", "qconv_depthwise_kernel", "qconv_wgmma_kernel",
-            "quantize_colmax_kernel", "quantize_kernel", "relax_kernel", "track_kernel"}
+            "quantize_colmax_kernel", "quantize_kernel", "relax_kernel", "track_warp_kernel"}

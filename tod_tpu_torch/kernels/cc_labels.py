@@ -5,10 +5,11 @@ smallest linear index of its 4-connected component, every other pixel
 Counterpart of the label propagation inside the JAX package's
 ``ops/cc_labels.py`` (``connected_components``), an XLA ``while_loop`` to a
 fixpoint.  On a CUDA tensor the wrapper launches ``csrc/cc_labels.cu``
-(union-find in three kernels, a fixed launch count, nothing read back); on a
-CPU tensor it runs the plain version below, the propagation loop itself.
-Both give the fixpoint bit for bit: with union by minimum every root is its
-component's smallest index.
+(union-find in three kernels: unions inside ``TILE`` x ``TILE`` tiles in
+shared memory, then the edges across tile borders, then a flatten; a fixed
+launch count, nothing read back); on a CPU tensor it runs the plain version
+below, the propagation loop itself.  Both give the fixpoint bit for bit:
+with union by minimum every root is its component's smallest index.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from tod_tpu_torch.kernels import _build
 
 SOURCE = "cc_labels"
 SIGNATURES = {
-    "tod_cc_labels": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+    "tod_cc_labels": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
 }
 SENTINEL = torch.iinfo(torch.int32).max
+TILE = 32  # csrc/cc_labels.cu kTile: a block's tile is TILE x TILE pixels, a row one warp's bits
+MAX_TILE_ROWS = 65535  # a launch grid's y extent
 
 
 def plain_root_labels(mask: torch.Tensor) -> torch.Tensor:
@@ -65,13 +68,20 @@ def root_labels(mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"mask must be bool or uint8, got {mask.dtype}")
+    if h * w >= SENTINEL or -(-h // TILE) > MAX_TILE_ROWS:
+        raise ValueError(f"a ({h}, {w}) mask: the kernel takes H*W < {SENTINEL} and "
+                         f"H <= {TILE * MAX_TILE_ROWS}")
     m = mask.contiguous()
-    labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
     if h * w == 0:
-        return labels
+        return torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    # the labels, then one int a tile (set when the tile has a masked pixel):
+    # one allocation
+    tiles = -(-h // TILE) * -(-w // TILE)
+    buf = torch.empty(h * w + tiles, dtype=torch.int32, device=mask.device)
+    labels = buf[: h * w].view(h, w)
     lib = _build.load(SOURCE, SIGNATURES)
     with torch.cuda.device(mask.device):
-        err = lib.tod_cc_labels(m.data_ptr(), labels.data_ptr(), h, w,
+        err = lib.tod_cc_labels(m.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * h * w, h, w,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "cc_labels launch")
     root_labels.launches += 1

@@ -3,7 +3,7 @@ in one launch.
 
 Counterpart of the JAX package's ``track/tracker.py`` (``track_update``
 then ``tracks_to_balls``), an XLA loop inside the jitted serving graph.  On
-a CUDA tensor the wrapper launches ``csrc/track.cu``, one block a bank; on a
+a CUDA tensor the wrapper launches ``csrc/track.cu``, one warp a bank; on a
 CPU tensor it runs the plain version, ``track/tracker.py``'s torch
 functions.  Either way the bank is updated in place (the JAX graph donates
 it) and nothing is read back.
@@ -25,7 +25,7 @@ SIGNATURES = {
     "tod_track": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9
                   + [ctypes.c_void_p], ctypes.c_int),
 }
-MAX_TRACKS = 32  # csrc/track.cu's kMaxTracks: a bank's rows live in shared memory
+MAX_TRACKS = 32  # csrc/track.cu's kMaxTracks: a bank's rows live in a warp's lanes
 
 
 def plain_track_banks(tracks: torch.Tensor, balls: torch.Tensor, cfg: TrackerConfig,
@@ -68,6 +68,9 @@ def track_banks(tracks: torch.Tensor, balls: torch.Tensor, cfg: TrackerConfig,
     if not 1 <= k <= MAX_TRACKS or m < 1 or 4 * k * m + m > SMEM_LIMIT:
         raise ValueError(f"K={k} tracks and M={m} balls: the kernel takes 1 <= K <= "
                          f"{MAX_TRACKS} and a K x M cost matrix within {SMEM_LIMIT} bytes")
+    if tracks.data_ptr() % 8 or balls.data_ptr() % 16:
+        raise ValueError("the kernel reads a bank row by 8-byte and a ball slot by 16-byte "
+                         "loads: tracks must be 8-byte and balls 16-byte aligned")
     seeds = torch.empty((n, max_balls, 4), dtype=torch.float32, device=tracks.device)
     q = cfg.accel_var
     lib = _build.load(SOURCE, SIGNATURES)

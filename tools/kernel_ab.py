@@ -2,8 +2,10 @@
 """An older commit's kernels beside this tree's, in one process on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``python3 tools/kernel_ab.py OLD_ROOT [ROUNDS]`` (K1 and K2) or
+``python3 tools/kernel_ab.py OLD_ROOT [ROUNDS]`` (K1 and K2),
 ``python3 tools/kernel_ab.py --qconv OLD_ROOT`` (the int8 convolution),
+``python3 tools/kernel_ab.py --cc OLD_ROOT`` (the connected-components
+labels) or ``python3 tools/kernel_ab.py --track OLD_ROOT`` (the tracker),
 where OLD_ROOT is a checkout of a commit from before the kernels were
 redesigned (for example unpacked by ``git archive``).
 
@@ -49,6 +51,26 @@ the packed kernel:
    (68 launches a forward), old, new, new, old.
 The last line is a JSON object with every reading and the card's name and
 power limit.
+
+The connected-components labels (``--cc``): the old
+``tod_tpu_torch/csrc/cc_labels.cu`` (its ``tod_cc_labels(mask, labels, h,
+w, stream)`` entry) beside this tree's ``kernels.cc_labels.root_labels``,
+held bit for bit on ``chip_smoke.py``'s masks at 480x640 and 479x641 and on
+the synthetic frame's balls, then timed at the balls (the main path's input)
+in turns old, new, new, old by CUDA events, with each arm's own device time
+and each of its launches' own time from the profiler, beside the bound.
+The same passes in one cooperative launch (``tools/cc_coop.cu``, two grid
+barriers in place of the launch boundaries) are held bit for bit too and
+timed in turns with this tree's three launches (new, coop, coop, new).
+
+The tracker (``--track``): the old ``tod_tpu_torch/csrc/track.cu`` (its
+``tod_track`` entry, the same arguments as this tree's) beside this tree's
+``kernels.track.track_banks``, held bit for bit (banks and seeds) on
+``chip_smoke.py``'s random banks at N = 1, 4, 16 and 33, its tie banks and
+its 64-step sequence, then timed at N = 1, 4 and 16 in turns old, new, new,
+old by CUDA events, with each arm's own device time, beside the bound.
+Each prints, as its last line, a JSON object with every reading and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -69,7 +91,13 @@ SIGNATURES = {
                     + [ctypes.c_void_p]),
     "qconv": ("tod_qconv", [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
               + [ctypes.c_int] * 15 + [ctypes.c_void_p]),
+    "cc_labels": ("tod_cc_labels", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "track": ("tod_track", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9
+              + [ctypes.c_void_p]),
 }
+SIGNATURES_CC_COOP = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+OLD_CC_PARTS = ("cc_init_kernel", "cc_merge_kernel", "cc_flatten_kernel")
+OLD_TRACK_KERNEL = "track_kernel"
 PROTONET = ((128, 32, 40), (128, 128, 3, 3), 1, 1, False)
 
 
@@ -225,23 +253,200 @@ def qconv_ab(old_root: pathlib.Path) -> int:
     return 0
 
 
+def in_turns(cs, torch, arms, make_call, order=("old", "new", "new", "old")) -> dict:
+    """Each arm's CUDA-event time (``chip_smoke.time_ms``) in the turns of
+    ``order`` -> {arm: [its times in turn]}."""
+    events = {name: [] for name in dict.fromkeys(order)}
+    for name in order:
+        events[name].append(cs.time_ms(make_call(arms[name]), torch)[0])
+    return events
+
+
+def cc_ab(old_root: pathlib.Path) -> int:
+    """The connected-components labels by the old commit's kernel and by
+    this tree's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tod_tpu_torch.core.config import CameraConfig
+    from tod_tpu_torch.kernels import _build
+    from tod_tpu_torch.kernels.cc_labels import TILE, root_labels
+    from tod_tpu_torch.runtime.frame_source import synth_frame_numpy
+
+    smi = cs.nvidia_smi_line()
+    cs.log(smi)
+    coop_so = _build.BUILD_DIR / "ab" / "libcc_coop.so"
+    coop_so.parent.mkdir(parents=True, exist_ok=True)
+    coop_build = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(coop_so),
+                                   str(ROOT / "tools" / "cc_coop.cu")], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+    fn = build_old(old_root, ["cc_labels"])["cc_labels"]
+    coop_log, _ = coop_build.communicate()
+    if coop_build.returncode:
+        raise RuntimeError(f"nvcc failed for tools/cc_coop.cu:\n{coop_log}")
+    coop_fn = ctypes.CDLL(str(coop_so)).tod_cc_coop
+    coop_fn.argtypes, coop_fn.restype = SIGNATURES_CC_COOP, ctypes.c_int
+
+    def coop(mask):
+        h, w = mask.shape
+        tiles = -(-h // TILE) * -(-w // TILE)
+        buf = torch.empty(h * w + tiles, dtype=torch.int32, device=mask.device)
+        err = coop_fn(mask.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * h * w, h, w,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cooperative cc launch failed: CUDA error {err}")
+        return buf[: h * w].view(h, w)
+
+    def old(mask):
+        h, w = mask.shape
+        labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+        err = fn(mask.data_ptr(), labels.data_ptr(), h, w, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old cc_labels launch failed: CUDA error {err}")
+        return labels
+
+    arms = {"old": old, "new": root_labels, "coop": coop}
+    device = torch.device("cuda", 0)
+    gen = np.random.default_rng(15)
+    masks = {}
+    for h, w in ((480, 640), (479, 641)):
+        for name, m in {**cs.cc_masks(np, gen, h, w), **cs.tile_masks(np, gen, h, w)}.items():
+            masks[f"{name} {h}x{w}"] = m
+    cam = CameraConfig()
+    f = synth_frame_numpy(0, 3, cam.height, cam.width)
+    masks["synthetic balls"] = cs.color_class_map(np, f.rgb) == 3
+    for name, m in masks.items():
+        card = torch.from_numpy(m).to(device)
+        want = old(card)
+        for arm in ("new", "coop"):
+            if not torch.equal(want, arms[arm](card)):
+                raise AssertionError(f"the old and {arm} cc kernels disagree on {name}")
+    cs.log(f"  old, new and cooperative cc kernels equal bit for bit on {len(masks)} masks: "
+           f"{list(masks)}")
+
+    balls = torch.from_numpy(masks["synthetic balls"]).to(device)
+    h, w = balls.shape
+    events = in_turns(cs, torch, arms, lambda fn: lambda: fn(balls))
+    coop_events = in_turns(cs, torch, arms, lambda fn: lambda: fn(balls),
+                           ("new", "coop", "coop", "new"))
+    calls = [(lambda: old(balls), OLD_CC_PARTS), (lambda: root_labels(balls), cs.CC_PARTS),
+             (lambda: coop(balls), "cc_coop_kernel")]
+    calls += [(lambda: old(balls), part) for part in OLD_CC_PARTS]
+    calls += [(lambda: root_labels(balls), part) for part in cs.CC_PARTS]
+    floor, own = cs.own_ms(torch, calls)
+    parts = {"old": dict(zip(OLD_CC_PARTS, own[3:6])), "new": dict(zip(cs.CC_PARTS, own[6:9]))}
+    bound, by = cs.bound_ms(5.0 * h * w, 8.0 * h * w, cs.ALU_OPS)
+    cs.log(f"  cc_labels at the synthetic balls ({h}x{w}, {int(balls.sum())} pixels), events old / "
+           f"new / new / old: {events['old'][0]:.5f} / {events['new'][0]:.5f} / "
+           f"{events['new'][1]:.5f} / {events['old'][1]:.5f} ms; own old {cs.fmt(own[0])} "
+           f"({', '.join(f'{k} {cs.fmt(v)}' for k, v in parts['old'].items())}), new "
+           f"{cs.fmt(own[1])} ({', '.join(f'{k} {cs.fmt(v)}' for k, v in parts['new'].items())});"
+           f" an empty kernel {cs.fmt(floor)}; bound {bound:.6f} ({by})")
+    cs.log(f"  the same passes in one cooperative launch, events new / coop / coop / new: "
+           f"{coop_events['new'][0]:.5f} / {coop_events['coop'][0]:.5f} / "
+           f"{coop_events['coop'][1]:.5f} / {coop_events['new'][1]:.5f} ms; own coop "
+           f"{cs.fmt(own[2])}")
+    cs.log(smi)
+    print(json.dumps({"device": smi, "cc_labels": {
+        "events_ms": events, "own_ms": {"old": own[0], "new": own[1]}, "own_parts_ms": parts,
+        "empty_own_ms": floor, "bound_ms": bound, "bound_by": by,
+        "cooperative": {"events_ms": coop_events, "own_ms": own[2]}}}))
+    return 0
+
+
+def track_ab(old_root: pathlib.Path) -> int:
+    """The tracker by the old commit's kernel and by this tree's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tod_tpu_torch.core.config import TrackerConfig
+    from tod_tpu_torch.kernels.track import track_banks
+
+    smi = cs.nvidia_smi_line()
+    cs.log(smi)
+    fn = build_old(old_root, ["track"])["track"]
+    cfg = TrackerConfig(enabled=True)
+    q = cfg.accel_var
+
+    def old(tracks, balls, cfg, max_balls):
+        n, k, _ = tracks.shape
+        seeds = torch.empty((n, max_balls, 4), dtype=torch.float32, device=tracks.device)
+        err = fn(tracks.data_ptr(), balls.data_ptr(), seeds.data_ptr(), n, k, balls.shape[1],
+                 max_balls, q * 0.25, q * 0.5, q, cfg.gate**2, cfg.meas_var, cfg.vel0_var,
+                 cfg.min_pixels, float(cfg.max_misses), float(cfg.min_hits),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old track launch failed: CUDA error {err}")
+        return seeds
+
+    arms = {"old": old, "new": track_banks}
+    device = torch.device("cuda", 0)
+    gen = np.random.default_rng(15)
+    cases = 0
+    for n in (1, 4, 16, 33):
+        for make in (cs.random_banks, cs.tie_banks):
+            banks, balls = make(np, gen, n)
+            b = torch.from_numpy(balls).to(device)
+            got = {}
+            for name, arm in arms.items():
+                card = torch.from_numpy(banks).to(device)
+                got[name] = (card, arm(card, b, cfg, 100))
+            if not all(torch.equal(x, y) for x, y in zip(got["old"], got["new"])):
+                raise AssertionError(f"the old and new trackers disagree at N={n} "
+                                     f"({make.__name__})")
+            cases += 1
+    seq = torch.from_numpy(cs.track_sequence(np, gen, 4, cs.TRACK_STEPS)).to(device)
+    banks = {name: torch.zeros((4, 8, 10), device=device) for name in arms}
+    for s in range(cs.TRACK_STEPS):
+        seeds = {name: arm(banks[name], seq[s], cfg, 100) for name, arm in arms.items()}
+        if not (torch.equal(banks["old"], banks["new"])
+                and torch.equal(seeds["old"], seeds["new"])):
+            raise AssertionError(f"the old and new trackers disagree at step {s} of the sequence")
+    cs.log(f"  old and new trackers equal bit for bit (banks and seeds) on {cases} bank sets "
+           f"and a {cs.TRACK_STEPS}-step sequence of 4 banks")
+
+    readings = {}
+    for n in (1, 4, 16):
+        banks, balls = cs.random_banks(np, gen, n)
+        card = torch.from_numpy(banks).to(device)
+        b = torch.from_numpy(balls).to(device)
+        events = in_turns(cs, torch, arms, lambda fn: lambda: fn(card, b, cfg, 100))
+        floor, own = cs.own_ms(torch, [(lambda: old(card, b, cfg, 100), OLD_TRACK_KERNEL),
+                                       (lambda: track_banks(card, b, cfg, 100), cs.TRACK_KERNEL)])
+        bound, by = cs.bound_ms(2 * 4 * n * (8 * 10 + 100 * 4), 0.0)
+        readings[n] = {"events_ms": events, "own_ms": {"old": own[0], "new": own[1]},
+                       "empty_own_ms": floor, "bound_ms": bound, "bound_by": by}
+        cs.log(f"  track N={n}, events old / new / new / old: {events['old'][0]:.5f} / "
+               f"{events['new'][0]:.5f} / {events['new'][1]:.5f} / {events['old'][1]:.5f} ms; "
+               f"own old {cs.fmt(own[0])}, new {cs.fmt(own[1])} (an empty kernel "
+               f"{cs.fmt(floor)}); bound {bound:.7f} ({by})")
+    cs.log(smi)
+    print(json.dumps({"device": smi, "track": readings}))
+    return 0
+
+
+MODES = {"--qconv": qconv_ab, "--cc": cc_ab, "--track": track_ab}
+
+
 def main(argv: list[str]) -> int:
-    qconv_mode = argv[:1] == ["--qconv"]
-    if qconv_mode:
+    mode = MODES.get(argv[0]) if argv else None
+    if mode:
         argv = argv[1:]
-    if not 1 <= len(argv) <= (1 if qconv_mode else 2):
-        print("usage: kernel_ab.py OLD_ROOT [ROUNDS] | kernel_ab.py --qconv OLD_ROOT",
-              file=sys.stderr)
+    if not 1 <= len(argv) <= (1 if mode else 2):
+        print("usage: kernel_ab.py OLD_ROOT [ROUNDS] | kernel_ab.py --qconv|--cc|--track "
+              "OLD_ROOT", file=sys.stderr)
         return 2
     old_root, rounds = pathlib.Path(argv[0]).resolve(), int(argv[1]) if len(argv) > 1 else 8
     sys.path.insert(0, str(ROOT))
-    if qconv_mode:
+    if mode:
         import torch
 
         if not torch.cuda.is_available():
             print("kernel_ab: CUDA is not available", file=sys.stderr)
             return 2
-        return qconv_ab(old_root)
+        return mode(old_root)
     import numpy as np
     import torch
 
