@@ -20,9 +20,15 @@ Phases, each printed as it ends:
    coasting and contended gates; the int8 convolution bit for bit
    at every distinct conv site of the 256x320 forward at batch 1 and 16, in
    bf16 and f32, with per-sample scales, at the shapes its tiling makes
-   risky, twice in a row at its largest split, and past 2^24), and its device time (CUDA
+   risky, twice in a row at its largest split, and past 2^24; and at the
+   ResNet stem's 7x7 stride-2 site, (1 and 16, 3, 480, 640) -> 64 in bf16
+   and f32, both quantize forms, its own row ``qconv_stem`` in the kernels
+   line), and its device time (CUDA
    events, median of 50 calls after a warm-up, enqueued behind a sleep
-   kernel) beside the plain version's and a library call's;
+   kernel) beside the plain version's and a library call's; then the
+   configurations past a kernel's limit (ROADMAP.md D5: K1's prototypes,
+   K3/K4's radius, the tracker's bank) refused by ``Engine`` and
+   ``MultiStreamEngine`` on the card before anything loads;
 4. the main path: the pinned weights, the default 640x480 / 256x320 / bf16
    configuration; one frame through ``Engine.serve_step_plan`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (any host synchronisation
@@ -95,7 +101,19 @@ Phases, each printed as it ends:
    conv call (68 a frame) and K1, K4, K2, the relaxation and the walk once;
    the f32 int8 forward and class map on the card against the CPU's on the
    same prepared tree; then the app with ``--int8``, ``--int8 --track`` and
-   ``--int8 --streams 4``.
+   ``--int8 --streams 4``;
+18. frozen artifacts (``tod_tpu_torch.deploy``) at the app's configuration:
+   ``plan``, ``track_plan``, semantic ``plan`` and ``--int8`` ``plan``
+   exported on the card, each held against its eager engine over 8 frames
+   bit for bit (the bank too) with the same launches a frame and one frame
+   under the sync check; an ``--aot`` artifact booted by ``bench.boot
+   --todx`` in a fresh process into an empty build directory (no nvcc
+   run), and ``python3 -m tod_tpu_torch.app --todx`` with ``GetPath`` and
+   ``GetStat``;
+19. the ResNet backbones (M13) on seeded init weights: ResNet18 and
+   ResNet50 forwards at batch 16, VGA, bf16; each card against CPU in f32
+   at 64x64; one ResNet18 ``--int8`` frame with its launches (``qconv``
+   once a static conv call, the 7x7 stem's among them).
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -1216,6 +1234,318 @@ def check_qconv(torch, np, rng, device):
         "library_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
         "own": (call, "qconv_wgmma_kernel"),
     }
+
+
+# the ResNet stem (tod_tpu/models/resnet.py:98): 7x7 stride 2 from RGB at VGA,
+# a ConvBN site, flat K = 147; as a phase 3 site tuple
+STEM = ((3, 480, 640), (64, 3, 7, 7), 2, 1, True)
+
+
+def check_qconv_stem(torch, np, rng, device):
+    """The int8 kernel at the ResNet stem's 7x7 site against ``plain_qconv``,
+    bit for bit: (1 and 16, 3, 480, 640) -> 64 in bf16 and f32, both
+    quantize forms, and a batch of 2 at odd sizes; timed at batch 1 in bf16
+    beside the plain version, ``torch._int_mm`` on the im2col'd operands (K
+    padded to 152) and the bf16 cuDNN conv."""
+    from tod_tpu_torch.kernels import qconv as qk
+    from tod_tpu_torch.kernels.qconv import pack_kernel, plain_qconv, qconv
+
+    gen = torch.Generator().manual_seed(17)
+    checked = 0
+    for b in (1, 16):
+        for dtype in (torch.bfloat16, torch.float32):
+            for divide in (False, True):
+                hold_qconv(torch, gen, device, b, STEM, dtype, divide, "the ResNet stem")
+                checked += 1
+    odd = ((3, 17, 23), (64, 3, 7, 7), 2, 1, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        hold_qconv(torch, gen, device, 2, odd, dtype, False, "the 7x7 stem at odd sizes")
+        checked += 1
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    t = qk.qconv_tiling(1, 3, 480, 640, 64, 7, 2, sms)
+    log(f"  qconv ResNet stem 7x7 stride 2 (B, 3, 480, 640) -> 64, flat K = {t.k_len}: "
+        f"{checked} batch x dtype x quantize cases equal to the plain version bit for bit "
+        f"(tol exact)")
+    x, kq, ws, sx, bias = qconv_inputs(torch, gen, device, 1, STEM, torch.bfloat16)
+    packed = pack_kernel(kq)
+    sx0 = sx[0]
+    call = lambda: qconv(x, kq, ws, sx0, bias, 2, 1, True, packed=packed)  # noqa: E731
+    ms, _ = time_ms(call, torch)
+    plain_ms, _ = time_ms(lambda: plain_qconv(x, kq, ws, sx, bias, 2, 1, True), torch, n=10)
+    m, k, n = 240 * 320, 147, 64
+    a = torch.randint(-127, 128, (m, 152), dtype=torch.int8, device=device)
+    bmat = torch.nn.functional.pad(kq.reshape(n, k), (0, 5)).t()
+    try:
+        int_mm_ms, _ = time_ms(lambda: torch._int_mm(a, bmat), torch)
+    except RuntimeError:
+        bmat = bmat.contiguous()
+        int_mm_ms, _ = time_ms(lambda: torch._int_mm(a, bmat), torch)
+    wb = kq.to(torch.bfloat16)
+    cudnn_ms, _ = time_ms(lambda: torch.nn.functional.conv2d(x, wb, None, 2, 3), torch)
+    # x read once (bf16), y written once (bf16), the s8 kernel, scales and bias
+    n_bytes = 2 * 3 * 480 * 640 + 2 * 64 * 240 * 320 + 64 * k + 3 * 64 * 4
+    bms, by = bound_ms(n_bytes, 2.0 * m * n * k, INT8_OPS)
+    log(f"  qconv ResNet stem (1, 3, 480, 640) -> 64, bf16 ({t.blocks} blocks: {t.m_tiles} M "
+        f"tiles x {t.splits} splits, {t.k_steps} K steps): kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f}, torch._int_mm (M={m}, K=152, N={n}) {int_mm_ms:.5f}, bf16 cuDNN "
+        f"conv {cudnn_ms:.5f}, bound {bms:.6f} ({by})")
+    return {
+        "name": "qconv_stem", "route": "cuda", "source": "tod_tpu_torch/csrc/qconv.cu",
+        "replaces": "tod_tpu/models/qconv.py:149",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
+        "own": (call, "qconv_wgmma_kernel"),
+    }
+
+
+def d5_refusals(torch) -> None:
+    """ROADMAP.md D5: a configuration past a card kernel's limit is refused
+    by ``Engine`` and ``MultiStreamEngine`` on the card before any weight
+    loads, naming the limit; the CPU serves it."""
+    import dataclasses
+
+    from tod_tpu_torch.core.config import GeometryConfig, ModelConfig, PipelineConfig, TrackerConfig
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.multistream import MultiStreamEngine
+
+    base = PipelineConfig()
+    cases = {
+        "K1 MAX_K": base.replace(model=ModelConfig(num_prototypes=40)),
+        "K3/K4 radius": base.replace(geometry=GeometryConfig(terrain_norm_const=120)),
+        "tracker MAX_TRACKS": base.replace(
+            tracker=TrackerConfig(enabled=True, max_tracks=40),
+            geometry=dataclasses.replace(base.geometry, max_balls=100),
+            planner=dataclasses.replace(base.planner, backend="tpu")),
+    }
+    for what, cfg in cases.items():
+        for make in (lambda c: Engine(c, params={}, device="cuda"),
+                     lambda c: MultiStreamEngine(c, 2, params={}, device="cuda")):
+            try:
+                make(cfg)
+            except ValueError as e:
+                if "D5" not in str(e):
+                    raise AssertionError(f"{what}: refused without naming D5: {e}") from e
+            else:
+                raise AssertionError(f"{what}: the card took a configuration past its limit")
+    log(f"  D5: {', '.join(cases)} refused on the card before anything loads (Engine and "
+        f"MultiStreamEngine), each naming ROADMAP.md D, D5")
+
+
+def artifact_path(torch, np, state, root, paths):
+    """Phase 18: frozen artifacts (``tod_tpu_torch.deploy``) at the app's
+    configuration (640x480 camera, model at 480x640, bf16): ``plan``,
+    ``track_plan``, semantic ``plan`` and ``--int8`` ``plan`` exported on
+    the card, each loaded and held against its eager engine over 8 frames
+    bit for bit (the plan, and the bank of ``track_plan``) with the same
+    launches a frame, and one frame under ``set_sync_debug_mode("error")``;
+    then a ``--aot`` artifact booted by ``bench.boot --todx`` in a fresh
+    process into an empty build directory (it must compile nothing), and
+    ``python3 -m tod_tpu_torch.app --todx`` with one ``GetPath`` and one
+    ``GetStat``."""
+    import os
+    import tempfile
+
+    from tod_tpu_torch.core.config import (
+        CameraConfig,
+        ModelConfig,
+        PipelineConfig,
+        PlannerConfig,
+        TrackerConfig,
+    )
+    from tod_tpu_torch.deploy import ServingArtifact, build_aot, export_engine, save_artifact
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+
+    cam = CameraConfig(width=640, height=480)
+    base = PipelineConfig(camera=cam, model=ModelConfig(input_size=(480, 640)),
+                          planner=PlannerConfig(backend="tpu"))
+    # (artifact mode, engine mode, configuration, the path's counters, the
+    # kernels that must launch every frame)
+    planner = ("connections", "relax", "path_walk", "bump")
+    cases = (
+        ("plan", "detect", base, paths["serving"], ("mask_assembly", *planner)),
+        ("track_plan", "detect", base.replace(tracker=TrackerConfig(enabled=True)),
+         paths["tracked"], ("track", "mask_assembly", *planner)),
+        ("plan", "semantic", base, paths["semantic"], ("cc_labels", *planner)),
+        ("plan", "detect", base.replace(model=ModelConfig(input_size=(480, 640), quantized=True)),
+         paths["int8"], ("qconv", "mask_assembly", *planner)),
+    )
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(cam, seed=0, n_frames=N_FRAMES + 1).frames()]
+    (root / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="artifacts-", dir=root / "build")
+    plan_art = None
+    for amode, emode, cfg, counters, must in cases:
+        what = f"{emode} {amode}" + (" --int8" if cfg.model.quantized else "")
+        eng = Engine(cfg, state, device="cuda", mode=emode)
+        t = time.time()
+        exported, meta = export_engine(eng, amode)
+        profiler_ops = sum("profiler" in str(n.target) for n in exported.graph.nodes)
+        path = os.path.join(tmp, f"{emode}-{amode}{'-int8' if cfg.model.quantized else ''}.todx")
+        save_artifact(exported, meta, path)
+        export_s = time.time() - t
+        t = time.time()
+        art = ServingArtifact.load(path, device="cuda")
+        load_s = time.time() - t
+        tracked = amode == "track_plan"
+        bank_a = art.init_tracks() if tracked else None
+        bank_e = eng._init_tracks() if tracked else None
+        run_a = (lambda f: art.call(f, bank_a)) if tracked else art.call  # noqa: E731
+        run_e = ((lambda f: eng.serve_step_track_plan(f, bank_e)) if tracked
+                 else eng.serve_step_plan)
+        run_a(frames[0])  # warm-up
+        run_e(frames[0])
+        sync_checked(torch, lambda: run_a(frames[0]))
+        if tracked:  # the warm-up and the sync check stepped the banks: start both afresh
+            bank_a.zero_()
+            bank_e.zero_()
+        n_valid, each = [], []
+        for f in frames[1:]:
+            reset(counters)
+            out_a = run_a(f)
+            torch.cuda.synchronize()
+            la = read(counters)
+            reset(counters)
+            out_e = run_e(f)
+            torch.cuda.synchronize()
+            le = read(counters)
+            plan_a, plan_e = (out_a[0], out_e[0]) if tracked else (out_a, out_e)
+            if not torch.equal(plan_a, plan_e) or (tracked and not torch.equal(bank_a, bank_e)):
+                raise AssertionError(f"the {what} artifact disagrees with its eager engine")
+            if la != le or min(la[name] for name in must) < 1:
+                raise AssertionError(f"{what}: artifact launches {la}, eager {le}")
+            each.append(la)
+            n_valid.append(check_plan(np, plan_a.cpu().numpy(), cfg.planner.max_path_steps))
+        if max(n_valid) == 0:
+            raise AssertionError(f"no {what} artifact frame planned a path to a ball")
+        log(f"  artifact {what}: exported in {export_s:.1f}s ({art.meta['payload_bytes']} payload "
+            f"bytes, kernels {meta['kernels']}, {profiler_ops} profiler ops in the graph), "
+            f"loaded in {load_s:.2f}s (stages {art.load_stages}); {N_FRAMES} frames equal to the "
+            f"eager engine bit for bit{' (plans and banks)' if tracked else ''}, launches a frame "
+            f"{each[0]} on both; one frame under set_sync_debug_mode('error'); plan n_valid "
+            f"{n_valid}")
+        if amode == "plan" and emode == "detect" and not cfg.model.quantized:
+            blob, aot = build_aot(meta, eng.device)
+            plan_art = os.path.join(tmp, "plan-aot.todx")
+            save_artifact(exported, meta, plan_art, aot_blob=blob, aot_meta=aot)
+        del eng, art
+
+    empty = os.path.join(tmp, "empty-build")
+    env = dict(os.environ, PYTHONPATH=str(root), TOD_BOOT_T0=repr(time.time()))
+    r = subprocess.run([sys.executable, "-m", "tod_tpu_torch.bench.boot", "--todx", plan_art,
+                        "--build-dir", empty, "--width", "640", "--height", "480"],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    if r.returncode != 0:
+        raise AssertionError(f"the aot boot failed (rc {r.returncode}): {r.stderr[-3000:]}")
+    boot = json.loads(r.stdout.strip().splitlines()[-1])
+    libs = sorted(p.name for p in pathlib.Path(empty).glob("*.so"))
+    log(f"  --aot boot in a fresh process into an empty build directory: boot "
+        f"{boot['boot']}, nvcc runs {boot['nvcc_built']}, boot to first plan "
+        f"{boot['boot_to_first_plan_s']} s, stages {boot['stages_s']}; libraries written {libs}")
+    if boot["boot"] != "todx-aot" or boot["nvcc_built"] or boot["first_path_len"] < 1:
+        raise AssertionError(f"the aot boot compiled or fell short: {boot}")
+
+    def talk(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+            sock.sendall(b"GetPath")
+            reply = read_reply(sock, 8)
+            sock.settimeout(0.5)  # the rest of the path: f32 pairs until the server is quiet
+            try:
+                while chunk := sock.recv(65536):
+                    reply += chunk
+            except TimeoutError:
+                pass
+            sock.settimeout(120)
+            sock.sendall(b"GetStat")
+            stat = b""
+            while len(stat) < 4 or len(stat) < 4 + int.from_bytes(stat[:4], "big"):
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                stat += chunk
+            return reply, json.loads(stat[4:])
+
+    metrics, (reply, stat), secs = run_app(root, ["--todx", plan_art, "--frames", "16",
+                                                  "--port", "0"], talk)
+    log(f"  app --todx: rc 0 in {secs:.1f}s, n_frames={metrics['n_frames']}, fps="
+        f"{metrics['fps']:.3f}, plans_done={metrics['plans_done']}, boot {metrics['boot']}; "
+        f"GetPath {len(reply)} bytes, GetStat requests {stat['requests']}, boot "
+        f"{stat.get('pipeline', {}).get('boot')}")
+    if (metrics["n_frames"] != 16 or metrics["plans_done"] < 1 or metrics["boot"] != "aot"
+            or stat["requests"]["GetPath"] != 1):
+        raise AssertionError(f"the --todx app fell short: {metrics}")
+
+
+def resnet_path(torch, np, counters):
+    """Phase 19: the ResNet backbones (M13) on seeded init weights: the
+    ResNet18 and ResNet50 forwards at batch 16, VGA, bf16 (chained step ms
+    and images/s); each against the CPU in f32 (TF32 off) at 64x64; then one
+    ResNet18 ``--int8`` frame at 480x640 through ``Engine.serve_step_plan``
+    with its launches (``qconv`` once per static conv call).  Returns the
+    stem's launches: the rise of ``qconv``'s counter across the 7x7 stem
+    site's forward in that frame."""
+    from tod_tpu_torch.bench.configs import _forward_point, _model, model_state
+    from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig
+    from tod_tpu_torch.models.qconv import conv_sites
+    from tod_tpu_torch.ops.preprocess import pack_frame
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+
+    for backbone in ("resnet18", "resnet50"):
+        mcfg = ModelConfig(backbone=backbone, input_size=(480, 640))
+        point = _forward_point(_model(mcfg, torch.device("cuda")), 16, (480, 640), 16,
+                               torch.device("cuda"))
+        log(f"  {backbone} forward batch 16 480x640 bf16: step {point['step_ms']} ms, "
+            f"{point['images_per_s']} images/s, {point['step_gflops']} GFLOPs, mfu "
+            f"{point['mfu']}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for backbone in ("resnet18", "resnet50"):
+        mcfg = ModelConfig(backbone=backbone, input_size=(64, 64), dtype="float32")
+        x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(3)) * 2 - 1
+        with torch.inference_mode():
+            card = _model(mcfg, torch.device("cuda"))(x.cuda())
+            cpu = _model(mcfg, torch.device("cpu"))(x)
+        worst = {f: ((getattr(card, f).cpu() - getattr(cpu, f)).abs().max().item(),
+                     getattr(cpu, f).abs().max().item())
+                 for f in ("loc", "conf", "coeff", "prototypes", "sem_logits")}
+        log(f"  {backbone} f32 64x64 card vs CPU (max abs diff, max |value|): "
+            + ", ".join(f"{f} ({d:.3g}, {v:.3g})" for f, (d, v) in worst.items())
+            + " (tol 1e-3 of the max |value|)")
+        if any(d > 1e-3 * max(v, 1.0) for d, v in worst.values()):
+            raise AssertionError(f"{backbone} on the card and on the CPU disagree")
+    mcfg = ModelConfig(backbone="resnet18", input_size=(480, 640), quantized=True)
+    cfg = PipelineConfig(camera=CameraConfig(width=640, height=480), model=mcfg)
+    eng = Engine(cfg, model_state(ModelConfig(backbone="resnet18", input_size=(480, 640))),
+                 device="cuda")
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory()
+              for f in SyntheticSource(cfg.camera, seed=0, n_frames=2).frames()]
+    eng.serve_step_plan(frames[0])
+    stem = conv_sites(eng.model)["ResNet_0.Conv_0"]
+    # "stem": the qconv launches counted while the stem site's forward runs
+    calls = {"static": 0, "stem": 0, "before_stem": 0}
+    hooks = [m.register_forward_hook(lambda *_: calls.__setitem__("static", calls["static"] + 1))
+             for m in conv_sites(eng.model).values() if m.branch == "static"]
+    hooks.append(stem.register_forward_pre_hook(
+        lambda *_: calls.__setitem__("before_stem", counters["qconv"].launches)))
+    hooks.append(stem.register_forward_hook(lambda *_: calls.__setitem__(
+        "stem", calls["stem"] + counters["qconv"].launches - calls["before_stem"])))
+    torch.cuda.synchronize()
+    reset(counters)
+    buf = eng.serve_step_plan(frames[1]).cpu().numpy()
+    launches = read(counters)
+    for h in hooks:
+        h.remove()
+    n_valid = check_plan(np, buf, cfg.planner.max_path_steps)
+    log(f"  ResNet18 --int8 frame 640x480: launches {launches} ({calls['static']} static int8 "
+        f"conv calls; the 7x7 stem site launched qconv {calls['stem']} time(s), {stem.branch}, "
+        f"k {stem.k}), plan n_valid {n_valid}")
+    if (launches["qconv"] != calls["static"] or calls["stem"] != 1 or stem.branch != "static"
+            or min(launches.values()) < 1):
+        raise AssertionError(f"the ResNet18 int8 frame's launches {launches}, calls {calls}")
+    return calls["stem"]
 
 
 def reset(counters) -> None:
@@ -2357,7 +2687,7 @@ def serve_and_query(path):
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.time()
     import torch
 
@@ -2427,8 +2757,9 @@ def main() -> int:
                check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
                *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device),
                check_cc(torch, np, rng, device), check_track(torch, np, rng, device),
-               check_qconv(torch, np, rng, device)]
+               check_qconv(torch, np, rng, device), check_qconv_stem(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
+    d5_refusals(torch)
 
     log("== 4. main path")
     path, launches, frame_ms, eng, frames = main_path(torch, np, serving)
@@ -2480,6 +2811,17 @@ def main() -> int:
     int8_apps(root)
     log(f"  phase 17 took {time.time() - t:.1f}s")
 
+    log("== 18. frozen artifacts at the app's configuration, the --aot boot, the --todx app")
+    t = time.time()
+    artifact_path(torch, np, state, root, {"serving": serving, "tracked": tracked,
+                                           "semantic": semantic, "int8": int8})
+    log(f"  phase 18 took {time.time() - t:.1f}s")
+
+    log("== 19. the ResNet backbones")
+    t = time.time()
+    stem_launches = resnet_path(torch, np, int8)
+    log(f"  phase 19 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
@@ -2488,6 +2830,7 @@ def main() -> int:
     launches["cc_labels"] = semantic_launches["cc_labels"]
     launches["track"] = tracked_launches["track"]
     launches["qconv"] = int8_launches["qconv"]
+    launches["qconv_stem"] = stem_launches
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",

@@ -274,7 +274,6 @@ def test_main_plans_on_the_host(planner, capsys, caplog):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--todx", "a.todx"], "M15"),
     (["--pipeline"], "M16"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(flags, item):

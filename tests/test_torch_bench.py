@@ -39,12 +39,13 @@ METRICS = {
     10: "int8_vs_bf16_serve_step_320x240",
     13: "batch2_model_throughput_64x64_int8",
     14: "batch_scaling_peak_throughput_64x64",
+    15: "backbone_family_batch2_64x64",
     16: "fps_multistream_sweep_320x240",
     17: "fps_latency_bounded_640x480",
     19: "tracked_serving_step_delta_ms",
 }
 # the ROADMAP.md item each unported config waits for
-ITEMS = {1: "data/frc_balls.png", 9: "M16", 11: "M14", 12: "M14", 15: "M13", 18: "M16"}
+ITEMS = {1: "data/frc_balls.png", 9: "M16", 11: "M14", 12: "M14", 18: "M16"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
 
@@ -147,12 +148,10 @@ class TestCLI:
             profiling.main(["--qvga-serve"])
 
     def test_unported_cli_flags_name_their_items(self):
-        from tod_tpu_torch.bench import boot, profiling
+        from tod_tpu_torch.bench import profiling
 
         with pytest.raises(SystemExit, match="M14"):
             profiling.main(["--train"])
-        with pytest.raises(SystemExit, match="M15"):
-            boot.main(["--todx", "a.todx"], device="cpu")
 
 
 def test_power_limit_is_asked_of_the_card_by_its_identity(monkeypatch):

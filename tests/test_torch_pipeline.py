@@ -354,6 +354,25 @@ class TestServeStepPlan:
         jp = JaxPath.deserialize(Path.from_plan(got.numpy()).serialize())
         assert len(jp.directions) == int(want[0, 0])
 
+    def test_plan_artifact_matches_jax_serve_step_plan(self, engines, tmp_path):
+        """The port engine's ``plan`` step frozen (``tod_tpu_torch.deploy``),
+        saved and loaded, against the JAX engine's plans, as the eager step
+        is held above."""
+        from tod_tpu_torch import deploy
+        from tod_tpu_torch.ops.preprocess import pack_frame
+
+        jax_engine, port = engines
+        exported, meta = deploy.export_engine(port, "plan")
+        deploy.save_artifact(exported, meta, str(tmp_path / "plan.todx"))
+        art = deploy.ServingArtifact.load(str(tmp_path / "plan.todx"), device="cpu")
+        for t in (0, 7):
+            f = frame(t)
+            packed = pack_frame(f.rgb, f.depth)
+            want = np.asarray(jax_engine._serve_step_plan_fn(jax_engine.params,
+                                                             jnp.asarray(packed)))
+            assert int(want[0, 0]) > 5
+            assert_plans_close(art.call(torch.from_numpy(packed)).numpy(), want)
+
     def test_serve_step_scene_matches_jax(self, engines):
         from tod_tpu_torch.ops.preprocess import pack_frame
 
@@ -410,6 +429,7 @@ mods = [m.name for m in pkgutil.walk_packages(tod_tpu_torch.__path__, "tod_tpu_t
 for m in mods:
     importlib.import_module(m)
 import tod_tpu_torch.app, tod_tpu_torch.kernels.bump, tod_tpu_torch.ops.quantize
+import tod_tpu_torch.deploy, tod_tpu_torch.runtime.artifact_engine
 from tod_tpu_torch.core import config
 from tod_tpu_torch.core.weights import load_pinned
 from tod_tpu_torch.ops.preprocess import pack_frame
@@ -455,7 +475,7 @@ def test_port_runs_without_jax():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n_mods, n_valid, n_sem, max_id, rc, rc_png, bench, loaded = out.stdout.split(maxsplit=7)
-    assert int(n_mods) >= 58 and int(n_valid) > 5 and int(n_sem) > 5 and int(max_id) >= 0
+    assert int(n_mods) >= 72 and int(n_valid) > 5 and int(n_sem) > 5 and int(max_id) >= 0
     assert int(rc_png) == 0
     assert bench.split(",") == [f"tod_tpu_torch.bench{m}" for m in (
         "", ".__main__", ".boot", ".configs", ".headline", ".mfu", ".profiling")]

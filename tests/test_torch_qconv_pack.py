@@ -91,6 +91,10 @@ EDGES = {
     "largest_split": (1, 224, 4, 5, 128, 3, 1, False),
     "tiles_across_batch": (3, 32, 7, 9, 64, 3, 1, False),
     "batch16": (16, 128, 8, 10, 288, 3, 1, False),
+    # the ResNet stem: 7x7 stride 2 from RGB, flat K = 147, a ConvBN site
+    "resnet_stem_7x7": (1, 3, 30, 41, 64, 7, 2, True),
+    "resnet_stem_7x7_batch2": (2, 3, 16, 16, 64, 7, 2, True),
+    "dense_7x7_cin_40": (1, 40, 9, 11, 72, 7, 1, False),
 }
 
 CASES = {f"forward_{c}x{h}x{w}_to_{o}_k{k}s{s}": (1, c, h, w, o, k, s, bn)
@@ -200,7 +204,7 @@ def test_tiling_covers_each_tile_and_stage_once(case):
     if 2 * tiles <= SMS and t.n_stages > 1:
         assert t.splits > 1
     if t.flat:
-        assert k == 3 and cin < 32 and t.k_len == cin * 9
+        assert k in (3, 7) and cin < 32 and t.k_len == cin * k * k
     else:
         assert t.cin_pad % 32 == 0 and t.cin_pad - 32 < cin <= t.cin_pad
 

@@ -10,6 +10,7 @@ Run as::
     python -m tod_tpu_torch.app --track --obstacle-memory 0.8 --plan-every 4
     python -m tod_tpu_torch.app --streams 4 --track
     python -m tod_tpu_torch.app --int8
+    python -m tod_tpu_torch.app --todx model.todx
 
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
@@ -33,9 +34,11 @@ bumps beside it, and ``--streams N`` serves N camera streams a tick through
 the reference's conflict checks between these flags hold.  ``--int8`` serves
 the int8 model: the weights calibrated on 4 synthetic frames and quantized
 at load, each dense conv one launch of the int8 kernel (``csrc/qconv.cu``);
-it goes with every other flag.  Flags of features
-the port does not have yet exit with a message naming their item in
-``ROADMAP.md``.
+it goes with every other flag.  ``--todx`` serves a frozen artifact
+(``tod_tpu_torch.deploy``) through the same supervised loop and server,
+building no model; the artifact fixes the mode, camera and model, so the
+flags that would change them exit.  Flags of features the port does not
+have yet exit with a message naming their item in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -93,7 +96,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Exit with the ``ROADMAP.md`` item of the first flag the port lacks."""
     refused = (
-        (args.todx is not None, "--todx", "B, M15: frozen artifacts"),
         (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
     )
     for hit, flag, item in refused:
@@ -108,6 +110,8 @@ def _check_conflicts(args) -> None:
             f"--track requires the device planner (the track bank lives on the "
             f"device inside the frame+plan step) - drop --planner {args.planner} "
             f"or use --planner tpu")
+    if args.todx:
+        return  # the artifact fixes the rest: _main_todx checks its own flags
     if args.track and not args.plan_every and args.streams <= 1:
         raise SystemExit("--track plans in-stream: requires --plan-every >= 1")
     if args.track and args.pipeline:
@@ -124,6 +128,8 @@ def main(argv=None, device=None) -> int:
     args = build_arg_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     _check_conflicts(args)
+    if args.todx:
+        return _main_todx(args, device)
     _refuse_unported(args)
 
     from tod_tpu_torch.core.config import (
@@ -283,6 +289,96 @@ def _main_multistream(args, cfg, params, make_source, device) -> int:
     else:
         logging.info("done: %d ticks x %d streams, %.1f frames/s aggregate",
                      metrics["n_ticks"], n, metrics["frames_per_s"])
+    return 0
+
+
+def _main_todx(args, device) -> int:
+    """``--todx``: the supervised serving loop, the server and the sources,
+    driven by a frozen artifact through ``ArtifactEngine`` (no model is
+    built).  With the artifact's kernel libraries for this card the boot
+    runs no nvcc (``boot aot``)."""
+    for flag, name in (
+        (args.track, "--track"),
+        (args.streams > 1, "--streams"),
+        (args.pipeline, "--pipeline"),
+        (args.checkpoint, "--checkpoint"),
+        (args.int8, "--int8"),
+        (args.debug_dump, "--debug-dump"),
+    ):
+        if flag:
+            raise SystemExit(
+                f"{name} is incompatible with --todx (the artifact freezes one serving "
+                "graph at export; tracking is an EXPORT-time choice: `deploy export "
+                "--track` freezes the tracked graph and the app serves whatever mode the "
+                "artifact declares)")
+    if not args.plan_every:
+        raise SystemExit("--todx plans in-stream or on host: requires --plan-every >= 1")
+
+    from tod_tpu_torch.core.config import ServerConfig
+    from tod_tpu_torch.deploy import ServingArtifact
+    from tod_tpu_torch.runtime.artifact_engine import ArtifactEngine
+    from tod_tpu_torch.runtime.frame_source import (
+        PNGSource,
+        RingSource,
+        SyntheticSource,
+        TraceSource,
+    )
+    from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
+
+    art = ServingArtifact.load(args.todx, device=device)
+    logging.info("artifact %s: mode=%s boot=%s%s on %s", args.todx, art.meta["mode"], art.boot,
+                 " (no nvcc)" if art.boot == "aot" else "", art.device)
+    server_cfg = ServerConfig(host=args.host, port=args.port, auth_token=args.auth_token,
+                              tls_cert=args.tls_cert, tls_key=args.tls_key,
+                              tls_client_ca=args.tls_client_ca)
+    engine = ArtifactEngine(art, server=server_cfg)
+    cam = engine.cfg.camera  # the artifact's frozen camera contract
+    if (args.width, args.height) != (640, 480) and (args.width, args.height) != (cam.width,
+                                                                                cam.height):
+        logging.warning("--width/--height ignored: the artifact serves %dx%d", cam.width,
+                        cam.height)
+
+    def make_source():
+        if args.source == "synthetic":
+            return SyntheticSource(cam, n_frames=args.frames)
+        if args.source == "png":
+            if not args.image:
+                raise SystemExit("--source png requires --image")
+            return PNGSource(args.image, cam, n_frames=args.frames)
+        if args.source == "trace":
+            if not args.trace:
+                raise SystemExit("--source trace requires --trace")
+            return TraceSource(args.trace, loop=True, n_frames=args.frames)
+        return RingSource(cam, fps=args.fps, trace_path=args.trace, n_frames=args.frames)
+
+    store = PathStore()
+    server_thread = server = None
+    if not args.no_server:
+        stats_fn = lambda: {  # noqa: E731 (GetStat's live metrics)
+            "fps": engine.fps.fps,
+            "stages": engine.timer.summary(),
+            "restarts": engine.restarts,
+            "boot": engine.boot,
+        }
+        server_thread, server = run_in_thread(store, server_cfg, stats_fn=stats_fn)
+        logging.info("path server on %s:%s", server_cfg.host, server.port)
+    try:
+        metrics = engine.run_supervised(
+            make_source, n_frames=args.frames, path_store=store,
+            max_restarts=3, stall_timeout_s=10.0,
+            max_inflight=args.max_inflight or None,
+            plan_every=args.plan_every,
+        )
+    finally:
+        if server is not None:
+            stop_thread_server(server)
+            server_thread.join(timeout=5)
+    metrics["boot"] = engine.boot
+    if args.metrics_json:
+        print(json.dumps(metrics, default=float))
+    else:
+        logging.info("done: %d frames, %.1f fps (artifact boot %s)", metrics["n_frames"],
+                     metrics["fps"], engine.boot)
     return 0
 
 

@@ -20,7 +20,12 @@ device and its ``warmup()``: cuDNN plans, first launches) and
 ``first_plan`` (the frame through ``serve_step_plan``, its plan read
 back).  A cold boot points ``--build-dir`` at an empty directory, a warm
 boot at the one the cold boot filled: the counterpart of the JAX boot's
-``--cache``.  ``--todx`` (a frozen artifact) waits for M15.
+``--cache``.  ``--todx ARTIFACT`` boots from a frozen ``plan`` artifact
+instead: ``artifact_load`` (read, install its kernel libraries when they
+fit this card, deserialize; its own stages in ``artifact_load_stages``)
+replaces the weights, build and warm-up stages, ``first_plan`` runs the
+frozen step, and ``boot`` is ``"todx-"`` + the artifact's boot (``aot``:
+no nvcc).  ``nvcc_built`` lists the sources the boot compiled.
 """
 
 from __future__ import annotations
@@ -46,9 +51,6 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--todx", default=None, help="boot from a frozen artifact")
     args = p.parse_args(argv)
-    if args.todx:
-        raise SystemExit("--todx is not ported to tod_tpu_torch yet "
-                         "(ROADMAP.md B, M15: frozen artifacts)")
 
     stages = {"python": round(time.time() - _T0, 3)}
     t_prev = time.time()
@@ -69,7 +71,7 @@ def main(argv=None, device=None) -> int:
     torch.zeros(8, device=dev).cpu()
     stage("device_first_touch")
 
-    from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig, PlannerConfig
+    from tod_tpu_torch.core.config import CameraConfig
     from tod_tpu_torch.ops.preprocess import pack_frame
     from tod_tpu_torch.runtime.frame_source import SyntheticSource
 
@@ -81,8 +83,45 @@ def main(argv=None, device=None) -> int:
         packed = packed.pin_memory()
     stage("frame_prep")
 
+    from tod_tpu_torch.kernels import _build
+
+    if args.build_dir:
+        _build.set_build_dir(args.build_dir)
+    if args.todx:
+        from tod_tpu_torch.deploy import ServingArtifact
+
+        art = ServingArtifact.load(args.todx, device=dev)
+        stage("artifact_load")
+        stages["artifact_load_stages"] = art.load_stages
+        path = art.plan(packed)
+        stage("first_plan")
+        boot = "todx-" + art.boot
+    else:
+        path = _engine_boot(dev, cam, packed, stage)
+        boot = "engine"
+
+    from tod_tpu_torch.bench.configs import device_info
+
+    print(json.dumps({
+        "boot_to_first_plan_s": round(time.time() - _T0, 3),
+        "stages_s": stages,
+        "boot": boot,
+        "build_dir": str(_build.BUILD_DIR),
+        "nvcc_built": _build.built,
+        "first_path_len": len(path.directions),
+        "backend": dev.type,
+        "device": device_info(dev),
+    }), flush=True)
+    return 0
+
+
+def _engine_boot(dev, cam, packed, stage):
+    """The engine's boot after ``frame_prep``: weights, kernels, warm-up,
+    first plan -> the first Path."""
+    from tod_tpu_torch.core.config import ModelConfig, PipelineConfig, PlannerConfig
     from tod_tpu_torch.core.weights import load_pinned
 
+    h, w = cam.height, cam.width
     cfg = PipelineConfig(camera=cam, model=ModelConfig(input_size=(h // 8 * 8, w // 8 * 8)),
                          planner=PlannerConfig(backend="tpu"))
     state = load_pinned(cfg=cfg.model)
@@ -91,8 +130,6 @@ def main(argv=None, device=None) -> int:
     from tod_tpu_torch.kernels import _build
     from tod_tpu_torch.native import loader
 
-    if args.build_dir:
-        _build.set_build_dir(args.build_dir)
     if dev.type == "cuda":
         from tod_tpu_torch.kernels import bump, connections, mask_assembly, path_walk, relax
 
@@ -111,19 +148,7 @@ def main(argv=None, device=None) -> int:
     stage("warmup")
     path = materialize_path(engine.serve_step_plan(packed))
     stage("first_plan")
-
-    from tod_tpu_torch.bench.configs import device_info
-
-    print(json.dumps({
-        "boot_to_first_plan_s": round(time.time() - _T0, 3),
-        "stages_s": stages,
-        "boot": "engine",
-        "build_dir": str(_build.BUILD_DIR),
-        "first_path_len": len(path.directions),
-        "backend": dev.type,
-        "device": device_info(dev),
-    }), flush=True)
-    return 0
+    return path
 
 
 if __name__ == "__main__":

@@ -172,24 +172,34 @@ def _labels(device: torch.device) -> dict:
 def model_state(mcfg: ModelConfig, seed: int = 0) -> dict[str, torch.Tensor]:
     """The pinned weights where they fit ``mcfg``'s widths, else an init
     seeded with ``seed``: each kernel normal with variance 1 / fan-in (the
-    JAX model's LeCun normal), each bias zero."""
+    JAX model's LeCun normal), each bias zero, and a ResNet block's
+    BatchNorms the identity (Flax's init: scale and var one, bias and mean
+    zero)."""
     from tod_tpu_torch.models.yolact import Yolact
 
     flagship = ModelConfig()
     if all(getattr(mcfg, f) == getattr(flagship, f) for f in _WIDTH_FIELDS):
         return load_pinned(cfg=mcfg)
     gen = torch.Generator().manual_seed(seed)
-    return {name: (torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5
-                   if name.endswith(".weight") else torch.zeros(p.shape))
-            for name, p in Yolact(mcfg).state_dict().items()}
+
+    def init(name: str, shape) -> torch.Tensor:
+        if name.endswith(".weight"):
+            return torch.randn(shape, generator=gen) / (torch.Size(shape[1:]).numel() ** 0.5)
+        return torch.ones(shape) if name.endswith((".scale", ".var")) else torch.zeros(shape)
+
+    return {name: init(name, p.shape) for name, p in Yolact(mcfg).state_dict().items()}
 
 
 def _model(mcfg: ModelConfig, device: torch.device):
+    from tod_tpu_torch.models.resnet import keep_f32
     from tod_tpu_torch.models.yolact import Yolact
 
     model = Yolact(mcfg)
-    model.load_state_dict(model_state(mcfg))
-    return model.to(device=device, dtype=getattr(torch, mcfg.dtype)).eval()
+    state = model_state(mcfg)
+    model.load_state_dict(state)
+    model.to(device=device, dtype=getattr(torch, mcfg.dtype)).eval()
+    keep_f32(model, state)
+    return model
 
 
 def _engine(cfg: PipelineConfig, device: torch.device):
@@ -523,6 +533,42 @@ def config14_batch_scaling(device=None, k: int | None = None) -> dict:
         "vs_baseline": round(best["images_per_s"] / REF_FRAME_FPS, 3),
         "best_batch": best["batch"],
         "curve": curve,
+        **_labels(dev),
+    }
+
+
+def config15_backbone_family(device=None, k: int | None = None) -> dict:
+    """Config 15: the forward's throughput by backbone (MobileNetV2,
+    ResNet18, ResNet50; ``core/registry.py``'s family names) at batch 16,
+    VGA, bf16 (batch 2 of the narrow model at 64x64 on the CPU, the JAX
+    config's sizes): ``k`` forwards chained, step ms, images/s, GFLOPs and
+    ``mfu``.  MobileNetV2 runs the pinned weights on the card, the ResNets
+    seeded init weights (the throughput does not depend on the values).
+    The quality fields are null: scoring needs ``train/evaluate.py``,
+    which waits for M14 (training)."""
+    dev = resolve_device(device)
+    on_card = _on_card(dev)
+    hw, batch = ((480, 640), 16) if on_card else ((64, 64), 2)
+    k = _count(k, dev, 128, 2)
+    curve = []
+    for name, backbone in (("yolact_mnv2_fpn", "mobilenetv2"), ("yolact_r18_fpn", "resnet18"),
+                           ("yolact_r50_fpn", "resnet50")):
+        mcfg = ModelConfig(name=name, backbone=backbone, input_size=hw,
+                           **({} if on_card else CPU_MODEL))
+        point = _forward_point(_model(mcfg, dev), batch, hw, k, dev)
+        curve.append({"backbone": backbone, "name": name,
+                      **{key: point[key] for key in ("step_ms", "images_per_s", "step_gflops",
+                                                     "mfu", "max_memory_mb")},
+                      "map50": None, "recall50": None})
+    mnv2 = curve[0]
+    return {
+        "metric": f"backbone_family_batch{batch}_{hw[0]}x{hw[1]}",
+        "value": mnv2["images_per_s"],
+        "unit": "images/s (mnv2)",
+        "vs_baseline": round(mnv2["images_per_s"] / REF_FRAME_FPS, 3),
+        "curve": curve,
+        "k": k,
+        "quality": "null: train/evaluate.py waits for ROADMAP.md B, M14 (training)",
         **_labels(dev),
     }
 
@@ -871,8 +917,6 @@ UNPORTED = {
     9: ("data-parallel batch serving over a mesh", "B, M16: multi-GPU"),
     11: ("train-step throughput and MFU", "B, M14: training"),
     12: ("wall-clock chunked training", "B, M14: training"),
-    15: ("throughput by backbone (MobileNetV2, ResNet18, ResNet50)",
-         "B, M13: ResNet backbones"),
     18: ("pipeline-parallel serving against the fused graph",
          "B, M16: pipeline-parallel serving"),
 }
@@ -903,6 +947,7 @@ CONFIGS = {
     10: config10_int8_vs_bf16,
     13: config13_int8_batch_throughput,
     14: config14_batch_scaling,
+    15: config15_backbone_family,
     16: config16_multistream_serving,
     17: config17_latency_bounded_vga,
     19: config19_tracked_serving,

@@ -21,7 +21,9 @@ device planner:
 - ``compile_s`` (the engine's warm-up) and ``compile_breakdown_s``;
 - ``boot_cold_s`` / ``boot_warm_s`` and their stages: two children of
   ``bench.boot``, the first on an empty build directory, the second on the
-  one it filled; ``boot_aot_s`` is null until M15 (frozen artifacts);
+  one it filled; ``boot_aot_s``, a third child booting a ``plan`` artifact
+  exported ``--aot`` from this engine into another empty build directory
+  (``bench.boot --todx``), which raises unless it compiled nothing;
 - ``device_busy_ms`` and ``idle_share``: 8 serve steps under
   ``torch.profiler`` (``profiling.top_ops``, which raises where the
   profile holds no CUDA activity), taken after every timed run because a
@@ -66,11 +68,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 HW = (240, 320)
 
 
-def _boot_child(build_dir: str, timeout: float) -> dict:
+def _boot_child(build_dir: str, timeout: float, todx: str | None = None) -> dict:
     env = dict(os.environ, TOD_BOOT_T0=repr(time.time()))
     r = subprocess.run(
         [sys.executable, "-m", "tod_tpu_torch.bench.boot", "--build-dir", build_dir,
-         "--width", str(HW[1]), "--height", str(HW[0])],
+         "--width", str(HW[1]), "--height", str(HW[0]), *(["--todx", todx] if todx else [])],
         capture_output=True, text=True, timeout=timeout, env=env, cwd=ROOT,
     )
     if r.returncode != 0:
@@ -78,9 +80,13 @@ def _boot_child(build_dir: str, timeout: float) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def boot_metrics(timeout: float = 600.0) -> dict:
-    """A cold boot (an empty build directory under ``build/``) and a warm
-    one (the directory the cold boot filled), each a child process."""
+def boot_metrics(eng, timeout: float = 600.0) -> dict:
+    """A cold boot (an empty build directory under ``build/``), a warm one
+    (the directory the cold boot filled) and an ``aot`` one (``eng``'s
+    ``plan`` step frozen with its kernel libraries, booted into another
+    empty build directory, where it must compile nothing), each a child
+    process."""
+    from tod_tpu_torch.deploy import build_aot, export_engine, save_artifact
     from tod_tpu_torch.kernels import _build
 
     root = _build.BUILD_DIR.parent
@@ -91,7 +97,16 @@ def boot_metrics(timeout: float = 600.0) -> dict:
             r = _boot_child(build_dir, timeout)
             out[f"boot_{key}_s"] = r["boot_to_first_plan_s"]
             out[f"boot_{key}_stages"] = r["stages_s"]
-    out["boot_aot_s"] = None  # frozen artifacts: ROADMAP.md B, M15
+    with tempfile.TemporaryDirectory(prefix="boot-aot-", dir=root) as build_dir:
+        exported, meta = export_engine(eng, "plan")
+        blob, aot = build_aot(meta, eng.device)
+        todx = os.path.join(build_dir, "plan.todx")
+        save_artifact(exported, meta, todx, aot_blob=blob, aot_meta=aot)
+        r = _boot_child(os.path.join(build_dir, "lib"), timeout, todx=todx)
+    if r["boot"] != "todx-aot" or r["nvcc_built"]:
+        raise RuntimeError(f"the aot boot was {r['boot']} and compiled {r['nvcc_built']}")
+    out["boot_aot_s"] = r["boot_to_first_plan_s"]
+    out["boot_aot_stages"] = r["stages_s"]
     return out
 
 
@@ -144,7 +159,7 @@ def measure(device=None, n_frames: int | None = None, runs: int | None = None,
         "weights": "tod_tpu_torch/weights/yolact_dr.npz",
     }
     if on_card:
-        result.update(boot_metrics())
+        result.update(boot_metrics(eng))
     else:
         result.update(boot_cold_s=None, boot_warm_s=None, boot_aot_s=None)
     # last: a profiler session slows the launches that follow it

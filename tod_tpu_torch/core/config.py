@@ -32,7 +32,7 @@ class ModelConfig:
     shared prediction head, semantic head)."""
 
     name: str = "yolact_mnv2_fpn"
-    backbone: str = "mobilenetv2"
+    backbone: str = "mobilenetv2"  # or "resnet18", "resnet34", "resnet50" (models/resnet.py)
     input_size: tuple[int, int] = (256, 320)  # (H, W)
     num_classes: int = 81  # semantic head width
     meaningful_classes: int = 4  # 0 bg, 1 red robot, 2 blue robot, 3 ball
@@ -187,6 +187,9 @@ class PipelineConfig:
         return dataclasses.replace(self, **kw)
 
 
+BACKBONES = ("mobilenetv2", "resnet18", "resnet34", "resnet50")
+
+
 def validate(cfg: PipelineConfig) -> list[str]:
     """Human-readable config problems (empty = valid)."""
     problems = []
@@ -202,8 +205,8 @@ def validate(cfg: PipelineConfig) -> list[str]:
     elif cfg.model.qat:
         problems.append("model.qat is not ported to tod_tpu_torch yet "
                         "(ROADMAP.md B, M14: training (QAT))")
-    if cfg.model.backbone != "mobilenetv2":
-        problems.append(f"backbone {cfg.model.backbone!r} is not ported yet")
+    if cfg.model.backbone not in BACKBONES:
+        problems.append(f"backbone {cfg.model.backbone!r} is not one of {BACKBONES}")
     if cfg.planner.backend not in PLANNER_BACKENDS:
         problems.append(f"planner.backend {cfg.planner.backend!r} is not one of {PLANNER_BACKENDS}")
     if cfg.planner.max_seed_balls < 1:

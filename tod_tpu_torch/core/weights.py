@@ -11,7 +11,9 @@ by the same transpose.  A tree prepared for int8 serving (the JAX
 ``prepare_int8_params``: folded, ``kernel_q`` s8 with ``w_scale`` and
 ``act_scale``, bfloat16 depthwise kernels) comes across as it is, its BN
 biases as the sites' biases; ``models.qconv.load_prepared`` loads it.
-Every leaf must be consumed and every state entry filled with the right
+Only ``Conv_0`` + ``BatchNorm_0`` pairs fold (the JAX rule): a ResNet
+block's BatchNorms come across unfolded (``scale``, ``bias``, ``mean``,
+``var``) and its bias-less convs get a zero bias.  Every leaf must be consumed and every state entry filled with the right
 shape, or the carry-across raises.
 
 ``carry_state`` carries the serving state across too: a track bank and an
@@ -77,8 +79,10 @@ def carry_across(tree: Mapping[str, np.ndarray],
             if not as_is:
                 kernel = (kernel.astype(np.float64) * g).astype(np.float32)
             bias = (beta - mean * g).astype(np.float32)
-        else:
+        elif f"params/{site}/bias" in tree:
             bias = take(f"params/{site}/bias").astype(np.float32)
+        else:  # a conv with no bias (a ResNet block's): a zero one
+            bias = np.zeros(kernel.shape[-1], np.float32)
         name = site.replace("/", ".")
         oihw = np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
         if prepared:
@@ -91,6 +95,16 @@ def carry_across(tree: Mapping[str, np.ndarray],
             dtype = getattr(torch, str(kernel.dtype))
             state[name + ".weight"] = torch.from_numpy(oihw.astype(np.float32)).to(dtype)
         state[name + ".bias"] = torch.from_numpy(np.ascontiguousarray(bias))
+
+    # the BatchNorms no conv folded (a ResNet block's), carried as they are
+    for key in sorted(k for k in tree if k.startswith("params/") and k.endswith("/scale")
+                      and k not in used):
+        bn = key[len("params/"):-len("/scale")]
+        name = bn.replace("/", ".")
+        for leaf, src in (("scale", "params"), ("bias", "params"), ("mean", "batch_stats"),
+                          ("var", "batch_stats")):
+            state[f"{name}.{leaf}"] = torch.from_numpy(
+                np.array(take(f"{src}/{bn}/{leaf}"), dtype=np.float32))
 
     unused = sorted(set(tree) - used)
     if unused:

@@ -37,7 +37,8 @@
 // in shared memory in the 128-byte swizzle.
 // - The weights are packed once, at load (kernels/qconv.py pack_kernel):
 //   K ordered (ky, kx, ci) with ci padded to 32 (or the flat (ci, ky, kx)
-//   padded to 32 where Cin < 32 at 3x3, the stem), cut into stages of 128 K
+//   padded to 32 where Cin < 32 at 3x3 or 7x7: MobileNetV2's stem, and
+//   ResNet's 7x7 stride-2 stem, K = 147), cut into stages of 128 K
 //   bytes, each stage of an N tile one contiguous, already swizzled run of
 //   BN x 128 bytes.  One thread brings a stage's B with one cp.async.bulk
 //   completing on the stage's mbarrier.
@@ -255,17 +256,19 @@ __device__ __forceinline__ float ldg_if(const __nv_bfloat16* p, bool pred) {
 
 // The 16 values of K from k0 of one output pixel's im2col row, loaded with
 // no branch (a padded or past-K value, or any where ``live`` is false, is 0,
-// and quantizes to 0 since the scales are positive and finite).
-template <typename T>
+// and quantizes to 0 since the scales are positive and finite).  FK: the
+// side of a flat site's kernel (3, or 7 at the ResNet stem), a template
+// argument so that each side's division by FK * FK is by a constant.
+template <int FK, typename T>
 __device__ __forceinline__ void load_chunk(float (&v)[kChunk], const T* __restrict__ xb,
                                            const Dense& p, int k0, int iy0, int ix0, bool live) {
   const int plane = p.s.h * p.s.w;
-  if (p.flat) {  // a 3x3 kernel (flat only where Cin < 32 at 3x3)
+  if (p.flat) {  // an FK x FK kernel (flat only where Cin < 32 at 3x3 or 7x7)
 #pragma unroll
     for (int i = 0; i < kChunk; ++i) {
       const int kk = k0 + i;
-      const int ci = kk / 9, r = kk - ci * 9;
-      const int ky = r / 3, kx = r - ky * 3;
+      const int ci = kk / (FK * FK), r = kk - ci * (FK * FK);
+      const int ky = r / FK, kx = r - ky * FK;
       const int iy = iy0 + ky, ix = ix0 + kx;
       const bool in = live && kk < p.k_len && iy >= 0 && iy < p.s.h && ix >= 0 && ix < p.s.w;
       v[i] = ldg_if(xb + (in ? ci * plane + iy * p.s.w + ix : 0), in);
@@ -291,8 +294,8 @@ constexpr int dense_smem_bytes() {
 }
 
 // grid (M tiles, N tiles, K splits), Roles<BN>::kThreads threads,
-// dense_smem_bytes<BN>()
-template <typename T, int BN>
+// dense_smem_bytes<BN>(); FK as in load_chunk (3 at every site but a flat 7x7)
+template <typename T, int BN, int FK>
 __global__ void __launch_bounds__(Roles<BN>::kThreads, 1)
 qconv_wgmma_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
                    const float* __restrict__ w_scale, const float* __restrict__ sx,
@@ -406,8 +409,8 @@ qconv_wgmma_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
 #pragma unroll
       for (int c2 = 0; c2 < kMine; ++c2) {
         const int c = lane + kLanes * c2;
-        load_chunk(v[c2], xb, p, (s_begin + i) * kStageK + c * kChunk, iy0, ix0,
-                   m_ok && c < chunks);
+        load_chunk<FK>(v[c2], xb, p, (s_begin + i) * kStageK + c * kChunk, iy0, ix0,
+                       m_ok && c < chunks);
       }
     };
     const auto put = [&](const float (&v)[kMine][kChunk], int i) {
@@ -543,11 +546,11 @@ qconv_depthwise_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
   }
 }
 
-template <typename T, int BN>
+template <typename T, int BN, int FK>
 cudaError_t launch_dense(const void* x, const void* packed, const void* w_scale, const void* sx,
                          const void* bias, void* y, const Dense& p, cudaStream_t stream) {
   constexpr int smem = dense_smem_bytes<BN>();
-  auto kernel = qconv_wgmma_kernel<T, BN>;
+  auto kernel = qconv_wgmma_kernel<T, BN, FK>;
   static unsigned configured = 0;  // a bit a device: the shared-memory opt-in is set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -577,14 +580,14 @@ cudaError_t launch_dense(const void* x, const void* packed, const void* w_scale,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int FK>
 cudaError_t launch_dense_n(int bn_tile, const void* x, const void* packed, const void* w_scale,
                            const void* sx, const void* bias, void* y, const Dense& p,
                            cudaStream_t stream) {
   switch (bn_tile) {
-    case 64: return launch_dense<T, 64>(x, packed, w_scale, sx, bias, y, p, stream);
-    case 128: return launch_dense<T, 128>(x, packed, w_scale, sx, bias, y, p, stream);
-    default: return launch_dense<T, 256>(x, packed, w_scale, sx, bias, y, p, stream);
+    case 64: return launch_dense<T, 64, FK>(x, packed, w_scale, sx, bias, y, p, stream);
+    case 128: return launch_dense<T, 128, FK>(x, packed, w_scale, sx, bias, y, p, stream);
+    default: return launch_dense<T, 256, FK>(x, packed, w_scale, sx, bias, y, p, stream);
   }
 }
 
@@ -621,14 +624,16 @@ extern "C" int tod_qconv_dense(const void* x, const void* packed, const void* w_
   const bool tiles_ok = (bn_tile == 64 || bn_tile == 128 || bn_tile == 256) &&
                         n_tiles >= 1 && (long long)n_tiles * bn_tile >= cout &&
                         (long long)(n_tiles - 1) * bn_tile < cout;
-  const bool k_ok = (flat ? k == 3 : cin_pad % kStepK == 0 && cin_pad >= cin) && k_steps >= 1 &&
+  const bool k_ok = (flat ? (k == 3 || k == 7) && cin < kStepK
+                          : cin_pad % kStepK == 0 && cin_pad >= cin) && k_steps >= 1 &&
                     (long long)k_steps * kStepK >= k_len && (k_steps - 1) * kStepK < k_len;
   const bool split_ok = splits >= 1 && stages_per_split >= 1 && splits <= kMaxSplits &&
                         (long long)splits * stages_per_split >= n_stages &&
                         (splits - 1) * stages_per_split < n_stages;
   const long long m_total = (long long)b * ho * wo;
-  if (b < 1 || cin < 1 || cout < 1 || ho < 1 || wo < 1 || stride < 1 || (k != 1 && k != 3) ||
-      (dtype != 0 && dtype != 1) || !tiles_ok || !k_ok || !split_ok || n_tiles > 65535 ||
+  if (b < 1 || cin < 1 || cout < 1 || ho < 1 || wo < 1 || stride < 1 ||
+      (k != 1 && k != 3 && k != 7) || (dtype != 0 && dtype != 1) || !tiles_ok || !k_ok ||
+      !split_ok || n_tiles > 65535 ||
       m_total + kBM > INT32_MAX || (long long)cin * h * w > INT32_MAX) {
     return (int)cudaErrorInvalidValue;
   }
@@ -648,10 +653,17 @@ extern "C" int tod_qconv_dense(const void* x, const void* packed, const void* w_
   p.divide = divide;
   p.bn = bn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  const bool seven = flat && k == 7;  // the ResNet stem; every other site's FK is 3
+  cudaError_t err;
   if (dtype == 0) {
-    return (int)launch_dense_n<float>(bn_tile, x, packed, w_scale, sx, bias, y, p, st);
+    err = seven ? launch_dense_n<float, 7>(bn_tile, x, packed, w_scale, sx, bias, y, p, st)
+                : launch_dense_n<float, 3>(bn_tile, x, packed, w_scale, sx, bias, y, p, st);
+  } else {
+    err = seven ? launch_dense_n<bf16, 7>(bn_tile, x, packed, w_scale, sx, bias, y, p, st)
+                : launch_dense_n<bf16, 3>(bn_tile, x, packed, w_scale, sx, bias, y, p, st);
   }
-  return (int)launch_dense_n<__nv_bfloat16>(bn_tile, x, packed, w_scale, sx, bias, y, p, st);
+  return (int)err;
 }
 
 // A depthwise site (Cin == Cout channels): x, y, sx and bias as above, wq

@@ -32,6 +32,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 SMEM_LIMIT = 232_448  # the most dynamic shared memory a Hopper block can opt into
 
 _loaded: dict[str, ctypes.CDLL] = {}
+built: list[str] = []  # the sources this process compiled with nvcc, in order
 _host_built = False  # a host library's path has been handed out (its loader caches it)
 _lock = threading.Lock()
 
@@ -110,6 +111,7 @@ def build(names: Iterable[str]) -> dict[str, str]:
         out = library_path(name)
         if not out.exists():
             jobs.append((name, *_start([find_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", out), out))
+            built.append(name)
     logs, failed = {}, []
     for name, proc, tmp, out in jobs:
         logs[name], ok = _finish(proc, tmp, out)

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``kernels/bump.py`` (``dilate_peaks_strips``
 and ``dilate_peaks``).  Both wrappers launch the one kernel of
 ``csrc/bump.cu`` on a CUDA tensor and run the plain ring loop below on a CPU
-tensor.  The ring table that both read comes from :func:`ring_table`
-(:func:`table_words` lays it out for the kernel), and :func:`bump_tiling`
-chooses the kernel's blocks from the shape and the SM count.
+tensor; while ``torch.export`` traces them, they call the custom ops
+``tod::dilate_peaks_strips`` and ``tod::dilate_peaks`` (the same two).  The
+ring table that both read comes from :func:`ring_table` (:func:`table_words`
+lays it out for the kernel), and :func:`bump_tiling` chooses the kernel's
+blocks from the shape and the SM count.
 """
 
 from __future__ import annotations
@@ -261,12 +263,12 @@ def dilate_peaks_strips(peaks_ext: torch.Tensor, bump_size: int, bump_err: float
     h, _ = out_shape
     if h % strip_h:
         raise ValueError(f"H={h} not divisible by strip_h={strip_h}")
-    pad = _check(peaks_ext, bump_size, out_shape)
+    _check(peaks_ext, bump_size, out_shape)
+    if torch.compiler.is_exporting():
+        return _strips_op(peaks_ext, bump_size, bump_err, *out_shape)
     if peaks_ext.device.type == "cpu":
         return plain_dilate_peaks(peaks_ext, bump_size, bump_err, out_shape)
-    out = _launch(peaks_ext, bump_size, bump_err, out_shape, pad)
-    dilate_peaks_strips.launches += 1
-    return out
+    return _launch_strips(peaks_ext, bump_size, bump_err, *out_shape)
 
 
 def dilate_peaks(peaks_ext: torch.Tensor, bump_size: int, bump_err: float,
@@ -274,18 +276,51 @@ def dilate_peaks(peaks_ext: torch.Tensor, bump_size: int, bump_err: float,
     """K4: the same dilation over the whole map.  With ``constant_val`` (every
     peak has that value) it is the separable closed form of
     ``geometry.fusion``, which is not a kernel."""
-    pad = _check(peaks_ext, bump_size, out_shape)
+    _check(peaks_ext, bump_size, out_shape)
     if constant_val is not None:
         from tod_tpu_torch.geometry.fusion import _dilate_const_separable
 
         return _dilate_const_separable(peaks_ext, bump_size, float(constant_val), bump_err,
                                        out_shape)
+    if torch.compiler.is_exporting():
+        return _whole_op(peaks_ext, bump_size, bump_err, *out_shape)
     if peaks_ext.device.type == "cpu":
         return plain_dilate_peaks(peaks_ext, bump_size, bump_err, out_shape)
-    out = _launch(peaks_ext, bump_size, bump_err, out_shape, pad)
+    return _launch_whole(peaks_ext, bump_size, bump_err, *out_shape)
+
+
+def _launch_strips(peaks_ext: torch.Tensor, bump_size: int, bump_err: float, h: int,
+                   w: int) -> torch.Tensor:
+    out = _launch(peaks_ext, bump_size, bump_err, (h, w), _check(peaks_ext, bump_size, (h, w)))
+    dilate_peaks_strips.launches += 1
+    return out
+
+
+def _launch_whole(peaks_ext: torch.Tensor, bump_size: int, bump_err: float, h: int,
+                  w: int) -> torch.Tensor:
+    out = _launch(peaks_ext, bump_size, bump_err, (h, w), _check(peaks_ext, bump_size, (h, w)))
     dilate_peaks.launches += 1
     return out
 
 
 dilate_peaks_strips.launches = 0
 dilate_peaks.launches = 0
+
+
+def _plain(peaks_ext: torch.Tensor, bump_size: int, bump_err: float, h: int,
+           w: int) -> torch.Tensor:
+    return plain_dilate_peaks(peaks_ext, bump_size, bump_err, (h, w))
+
+
+def _fake(peaks_ext, bump_size, bump_err, h, w):
+    return peaks_ext.new_empty((h, w))
+
+
+_strips_op = torch.library.custom_op("tod::dilate_peaks_strips", _plain, mutates_args=(),
+                                     device_types="cpu")
+_strips_op.register_kernel("cuda")(_launch_strips)
+_strips_op.register_fake(_fake)
+_whole_op = torch.library.custom_op("tod::dilate_peaks", _plain, mutates_args=(),
+                                    device_types="cpu")
+_whole_op.register_kernel("cuda")(_launch_whole)
+_whole_op.register_fake(_fake)

@@ -8,7 +8,8 @@ fixpoint.  On a CUDA tensor the wrapper launches ``csrc/cc_labels.cu``
 (union-find in three kernels: unions inside ``TILE`` x ``TILE`` tiles in
 shared memory, then the edges across tile borders, then a flatten; a fixed
 launch count, nothing read back); on a CPU tensor it runs the plain version
-below, the propagation loop itself.  Both give the fixpoint bit for bit:
+below, the propagation loop itself (``torch.export`` traces the custom op
+``tod::root_labels``, the same two).  Both give the fixpoint bit for bit:
 with union by minimum every root is its component's smallest index.
 """
 
@@ -61,9 +62,15 @@ def root_labels(mask: torch.Tensor) -> torch.Tensor:
     """(H, W) bool or uint8 mask -> (H, W) int32 root labels on its device."""
     if mask.dim() != 2:
         raise ValueError(f"expected an (H, W) mask, got shape {tuple(mask.shape)}")
-    h, w = mask.shape
+    if torch.compiler.is_exporting():
+        return _op(mask)
     if mask.device.type == "cpu":
         return plain_root_labels(mask)
+    return _launch(mask)
+
+
+def _launch(mask: torch.Tensor) -> torch.Tensor:
+    h, w = mask.shape
     if mask.device.type != "cuda":
         raise ValueError(f"unsupported device {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
@@ -89,3 +96,12 @@ def root_labels(mask: torch.Tensor) -> torch.Tensor:
 
 
 root_labels.launches = 0
+
+_op = torch.library.custom_op("tod::root_labels", plain_root_labels, mutates_args=(),
+                              device_types="cpu")
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(mask):
+    return mask.new_empty(mask.shape, dtype=torch.int32)

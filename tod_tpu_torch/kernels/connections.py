@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``kernels/connections.py`` (``connection_weights``).
 ``connection_planes`` is the kernel's function: on a CUDA tensor it
 launches ``csrc/connections.cu``, on a CPU tensor it runs the plain version
-below.  ``connection_weights`` adds the positions, formed outside the kernel
+below, and while ``torch.export`` traces it, it calls the custom op
+``tod::connection_planes`` (the same two).  ``connection_weights`` adds the positions, formed outside the kernel
 as the JAX wrapper forms them.  ``connection_tiling`` chooses the kernel's
 row bands from the shape and the SM count.
 """
@@ -119,10 +120,16 @@ def connection_planes(height_map: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected an (H, W) height map, got {tuple(height_map.shape)}")
     if height_map.dtype != torch.float32 or not height_map.is_contiguous():
         raise ValueError("height_map must be contiguous float32")
+    if torch.compiler.is_exporting():
+        return _op(height_map)
     if height_map.device.type == "cpu":
         return plain_connection_planes(height_map)
     if height_map.device.type != "cuda":
         raise ValueError(f"unsupported device {height_map.device}")
+    return _launch(height_map)
+
+
+def _launch(height_map: torch.Tensor) -> torch.Tensor:
     h, w = height_map.shape
     conn = torch.empty((h, w, 8), dtype=torch.float32, device=height_map.device)
     if h * w == 0:
@@ -142,6 +149,19 @@ def connection_planes(height_map: torch.Tensor) -> torch.Tensor:
 
 
 connection_planes.launches = 0
+
+
+@torch.library.custom_op("tod::connection_planes", mutates_args=(), device_types="cpu")
+def _op(height_map: torch.Tensor) -> torch.Tensor:
+    return plain_connection_planes(height_map)
+
+
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(height_map):
+    return height_map.new_empty((*height_map.shape, 8))
 
 
 def connection_weights(height_map: torch.Tensor):

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``kernels/mask_assembly.py`` (``assemble_crop_masks``).
 On a CUDA tensor the wrapper launches ``csrc/mask_assembly.cu``; on a CPU
 tensor it runs the plain version, ``crop_masks(assemble_masks(...))``.
-``mask_tiling`` chooses the kernel's pixel tile and detection groups from
-the shapes and the SM count.
+While ``torch.export`` traces it, it calls the custom op
+``tod::assemble_crop_masks`` (the same launch and plain version), which an
+exported graph keeps.  ``mask_tiling`` chooses the kernel's pixel tile and
+detection groups from the shapes and the SM count.
 """
 
 from __future__ import annotations
@@ -61,16 +63,17 @@ def mask_tiling(b: int, hw: int, n: int, k: int, sms: int) -> MaskTiling:
     ``k`` prototypes for a card with ``sms`` SMs.
 
     The pixel tile is the largest multiple of 32 (at most ``MAX_PIXELS``)
-    that still gives every SM a block; the detection groups give each thread
-    at most ``DETS`` detections, within ``MAX_THREADS`` threads a block.
-    Raises if ``k`` exceeds ``MAX_K`` or the block's shared memory exceeds
-    ``SMEM_LIMIT``.
+    that still gives every SM a block and fits ``SMEM_LIMIT``; the detection
+    groups give each thread at most ``DETS`` detections, within
+    ``MAX_THREADS`` threads a block.  Raises if ``k`` exceeds ``MAX_K`` or
+    even a 32-pixel tile's shared memory exceeds ``SMEM_LIMIT``.
     """
     if min(b, hw, n, sms) < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"mask_tiling needs b, hw, n, sms >= 1 and 1 <= K <= MAX_K = {MAX_K}, "
                          f"got {(b, hw, n, k, sms)}")
     pixels = 32
-    while pixels + 32 <= MAX_PIXELS and b * -(-hw // (pixels + 32)) >= sms:
+    while (pixels + 32 <= MAX_PIXELS and b * -(-hw // (pixels + 32)) >= sms
+           and smem_bytes(pixels + 32, n, k) <= SMEM_LIMIT):
         pixels += 32
     groups = max(1, min(-(-n // DETS), MAX_THREADS // pixels))
     t = MaskTiling(pixels, groups, pixels * groups, b * -(-hw // pixels), smem_bytes(pixels, n, k))
@@ -99,10 +102,17 @@ def assemble_crop_masks(prototypes: torch.Tensor, coeffs: torch.Tensor,
             raise ValueError(f"{name} must be contiguous float32 on {prototypes.device}")
     if k > MAX_K:
         raise ValueError(f"K={k} prototypes: the kernel takes at most MAX_K = {MAX_K}")
+    if torch.compiler.is_exporting():
+        return _op(prototypes, coeffs, boxes)
     if prototypes.device.type == "cpu":
         return plain_assemble_crop_masks(prototypes, coeffs, boxes)
     if prototypes.device.type != "cuda":
         raise ValueError(f"unsupported device {prototypes.device}")
+    return _launch(prototypes, coeffs, boxes)
+
+
+def _launch(prototypes: torch.Tensor, coeffs: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    b, hm, wm, k = prototypes.shape
     n = coeffs.shape[1]
     out = torch.empty((b, n, hm, wm), dtype=torch.float32, device=prototypes.device)
     if out.numel() == 0:
@@ -120,3 +130,17 @@ def assemble_crop_masks(prototypes: torch.Tensor, coeffs: torch.Tensor,
 
 
 assemble_crop_masks.launches = 0
+
+
+@torch.library.custom_op("tod::assemble_crop_masks", mutates_args=(), device_types="cpu")
+def _op(prototypes: torch.Tensor, coeffs: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    return plain_assemble_crop_masks(prototypes, coeffs, boxes)
+
+
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(prototypes, coeffs, boxes):
+    b, hm, wm, _ = prototypes.shape
+    return prototypes.new_empty((b, coeffs.shape[1], hm, wm))

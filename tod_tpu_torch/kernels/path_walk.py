@@ -5,7 +5,8 @@ Counterpart of the walk inside the JAX package's ``planner/tpu_relax.py``
 (``plan_on_device``), which XLA runs on the device.  On a CUDA tensor the
 wrapper launches ``csrc/path_walk.cu`` (pointer doubling over the grid, then
 one thread a plan row), so only the plan leaves the card; on a CPU tensor it
-runs the plain version below.
+runs the plain version below; while ``torch.export`` traces it, it calls
+the custom op ``tod::walk_path`` (the same two).
 """
 
 from __future__ import annotations
@@ -92,14 +93,22 @@ def walk_path(dist: torch.Tensor, next_dir: torch.Tensor, start_yx, max_steps: i
     sy, sx = start_yx
     if not (0 <= sy < h and 0 <= sx < w) or max_steps < 0:
         raise ValueError(f"start {start_yx} off the {h}x{w} grid, or max_steps {max_steps} < 0")
+    if torch.compiler.is_exporting():
+        return _op(dist, next_dir, sy, sx, max_steps, signed)
     if dist.device.type == "cpu":
         return plain_walk_path(dist, next_dir, start_yx, max_steps, signed)
+    return _launch(dist, next_dir, sy, sx, max_steps, signed)
+
+
+def _launch(dist: torch.Tensor, next_dir: torch.Tensor, sy: int, sx: int, max_steps: int,
+            signed: bool) -> torch.Tensor:
     if dist.device.type != "cuda":
         raise ValueError(f"unsupported device {dist.device}")
     if (dist.dtype != torch.float32 or next_dir.dtype != torch.int64
             or next_dir.device != dist.device
             or not dist.is_contiguous() or not next_dir.is_contiguous()):
         raise ValueError(f"dist must be contiguous float32 and next_dir contiguous int64 on {dist.device}")
+    h, w = dist.shape
     plan = torch.empty((max_steps + 1, 2), dtype=torch.float32, device=dist.device)
     levels = max(1, max_steps.bit_length())  # 2**levels > max_steps
     succ = torch.empty(levels * h * w, dtype=torch.int32, device=dist.device)
@@ -115,3 +124,17 @@ def walk_path(dist: torch.Tensor, next_dir: torch.Tensor, start_yx, max_steps: i
 
 
 walk_path.launches = 0
+
+
+@torch.library.custom_op("tod::walk_path", mutates_args=(), device_types="cpu")
+def _op(dist: torch.Tensor, next_dir: torch.Tensor, sy: int, sx: int, max_steps: int,
+        signed: bool) -> torch.Tensor:
+    return plain_walk_path(dist, next_dir, (sy, sx), max_steps, signed)
+
+
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(dist, next_dir, sy, sx, max_steps, signed):
+    return dist.new_empty((max_steps + 1, 2), dtype=torch.float32)

@@ -6,6 +6,8 @@ computes on the TPU.  On a CUDA tensor ``qconv`` launches ``csrc/qconv.cu``
 (one launch a site: the activation quantize fused into the load, the int32
 sum on the tensor cores, the rescale and the bias); on a CPU tensor it runs
 ``plain_qconv``, the same function in float64 over the integer values.
+While ``torch.export`` traces it, it calls the custom op ``tod::qconv``
+(the same two), which an exported graph keeps.
 
 A dense site's kernel reads its weights as ``pack_kernel`` lays them out
 once, at load: K in the order the kernel walks it, cut into the N tiles and
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from tod_tpu_torch.kernels import _build
-from tod_tpu_torch.models.conv import same_pads
+from tod_tpu_torch.ops.padding import same_pads
 from tod_tpu_torch.ops.ieee import fma, rdiv
 
 SOURCE = "qconv"
@@ -33,6 +35,7 @@ SIGNATURES = {
                             + [ctypes.c_int] * 13 + [ctypes.c_void_p], ctypes.c_int),
 }
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_SIDES = (1, 3, 7)  # 7: the ResNet stem, dense only
 
 BM = 64  # output pixels a tile: one wgmma's M
 STAGE_K = 128  # K bytes a stage: one 128-byte swizzled row a pixel or channel
@@ -187,8 +190,8 @@ def qconv(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: to
           bias: torch.Tensor, stride: int = 1, groups: int = 1, bn: bool = False,
           divide: bool = False, packed: torch.Tensor | None = None) -> torch.Tensor:
     """The int8 convolution of ``x`` (B, Cin, H, W), f32 or bf16 contiguous,
-    with ``kernel_q`` (Cout, Cin / groups, k, k) s8 (k 1 or 3; ``groups`` 1
-    or Cin == Cout), ``w_scale`` (Cout,) f32, ``sx`` the activation scale,
+    with ``kernel_q`` (Cout, Cin / groups, k, k) s8 (k 1, 3 or 7, the 7 dense
+    only; ``groups`` 1 or Cin == Cout), ``w_scale`` (Cout,) f32, ``sx`` the activation scale,
     () or (B,) f32, and ``bias`` (Cout,) f32 -> (B, Cout, Ho, Wo) in
     ``x``'s dtype, SAME padding.  ``bn``: a ConvBN site (see ``epilogue``);
     ``divide``: quantize by ``x / sx`` (the dynamic branch) in place of
@@ -200,9 +203,9 @@ def qconv(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: to
                          f"{tuple(x.shape)} {x.dtype} and {tuple(kernel_q.shape)}")
     b, cin, h, w = x.shape
     cout, cpg, k, k2 = kernel_q.shape
-    if k != k2 or k not in (1, 3) or stride < 1:
-        raise ValueError(f"the kernel takes 1x1 and 3x3 kernels and a stride >= 1, got "
-                         f"{k}x{k2} stride {stride}")
+    if k != k2 or k not in KERNEL_SIDES or stride < 1 or (groups != 1 and k == 7):
+        raise ValueError(f"the kernel takes 1x1, 3x3 and (dense) 7x7 kernels and a stride "
+                         f">= 1, got {k}x{k2} stride {stride}, groups {groups}")
     if groups == 1:
         if cpg != cin:
             raise ValueError(f"kernel {tuple(kernel_q.shape)} does not fit {cin} channels")
@@ -228,13 +231,23 @@ def qconv(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: to
         if tuple(packed.shape) != packed_shape(cin, cout, k) or not packed.is_contiguous():
             raise ValueError(f"packed {tuple(packed.shape)} is not pack_kernel's layout of "
                              f"kernel {tuple(kernel_q.shape)}: {packed_shape(cin, cout, k)}")
+    if torch.compiler.is_exporting():
+        return _op(x, kernel_q, w_scale, sx, bias, stride, groups, bn, divide, packed)
     if x.device.type == "cpu":
         return plain_qconv(x, kernel_q, w_scale, sx, bias, stride, groups, bn, divide)
+    return _launch(x, kernel_q, w_scale, sx, bias, stride, groups, bn, divide, packed)
+
+
+def _launch(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: torch.Tensor,
+            bias: torch.Tensor, stride: int, groups: int, bn: bool, divide: bool,
+            packed: torch.Tensor | None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if groups == 1 and packed is None:
         raise ValueError("a dense site on the card reads its kernel as pack_kernel(kernel_q) "
                          "lays it out: pass packed")
+    b, cin, h, w = x.shape
+    cout, _, k, _ = kernel_q.shape
     (pt, pb), (pl, pr) = _pads(x, k, stride)
     ho, wo = (h + pt + pb - k) // stride + 1, (w + pl + pr - k) // stride + 1
     y = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
@@ -264,3 +277,22 @@ def qconv(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: to
 
 
 qconv.launches = 0
+
+
+def _plain(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor, sx: torch.Tensor,
+           bias: torch.Tensor, stride: int, groups: int, bn: bool, divide: bool,
+           packed: torch.Tensor | None) -> torch.Tensor:
+    return plain_qconv(x, kernel_q, w_scale, sx, bias, stride, groups, bn, divide)
+
+
+_op = torch.library.custom_op("tod::qconv", _plain, mutates_args=(), device_types="cpu")
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(x, kernel_q, w_scale, sx, bias, stride, groups, bn, divide, packed):
+    (pt, pb), (pl, pr) = _pads(x, kernel_q.shape[-1], stride)
+    k = kernel_q.shape[-1]
+    ho = (x.shape[2] + pt + pb - k) // stride + 1
+    wo = (x.shape[3] + pl + pr - k) // stride + 1
+    return x.new_empty((x.shape[0], kernel_q.shape[0], ho, wo))

@@ -5,7 +5,8 @@ Counterpart of ``bellman_ford_grid`` in the JAX package's
 ``planner/tpu_relax.py``, a ``lax.while_loop`` that XLA keeps on the
 device.  On a CUDA tensor the wrapper launches ``csrc/relax.cu``, one
 cooperative kernel for the whole loop, and reads nothing back; on a CPU
-tensor it runs the plain version below.  ``relax_tiling`` chooses the
+tensor it runs the plain version below; while ``torch.export`` traces it,
+it calls the custom op ``tod::bellman_ford_grid`` (the same two).  ``relax_tiling`` chooses the
 kernel's tiles and batch depth from the map's shape and the SM count.
 """
 
@@ -180,10 +181,23 @@ def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
             f">= 0, got {tuple(height.shape)}, {tuple(connections.shape)}, "
             f"{tuple(seed_mask.shape)}, {max_iters}"
         )
+    if torch.compiler.is_exporting():
+        return _op(height, connections, seed_mask, max_iters)
+    if height.device.type == "cpu":
+        return _plain(height, connections, seed_mask, max_iters)
+    return _launch(height, connections, seed_mask, max_iters)
+
+
+def _plain(height: torch.Tensor, connections: torch.Tensor, seed_mask: torch.Tensor,
+           max_iters: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dist, next_dir, sweeps = plain_bellman_ford_grid(height, connections, seed_mask, max_iters)
+    return dist, next_dir, torch.tensor(sweeps, dtype=torch.int32)
+
+
+def _launch(height: torch.Tensor, connections: torch.Tensor, seed_mask: torch.Tensor,
+            max_iters: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    h, w = height.shape
     dev = height.device
-    if dev.type == "cpu":
-        dist, next_dir, sweeps = plain_bellman_ford_grid(height, connections, seed_mask, max_iters)
-        return dist, next_dir, torch.tensor(sweeps, dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     tensors = (height, connections, seed_mask)
@@ -216,3 +230,13 @@ def bellman_ford_grid(height: torch.Tensor, connections: torch.Tensor,
 
 
 bellman_ford_grid.launches = 0
+
+_op = torch.library.custom_op("tod::bellman_ford_grid", _plain, mutates_args=(),
+                              device_types="cpu")
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(height, connections, seed_mask, max_iters):
+    return (height.new_empty(height.shape), height.new_empty(height.shape, dtype=torch.int64),
+            height.new_empty((), dtype=torch.int32))

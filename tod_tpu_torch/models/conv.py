@@ -7,17 +7,13 @@ on an even size pads 0 top/left and 1 bottom/right, which torch's symmetric
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tod_tpu_torch.ops.padding import same_pads
 
-def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
-    """(low, high) padding of one axis under SAME."""
-    total = max((math.ceil(size / s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
+__all__ = ["Conv", "same_pads"]
 
 
 class Conv(nn.Module):

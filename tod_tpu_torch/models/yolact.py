@@ -16,12 +16,14 @@ import torch
 from torch import nn
 
 from tod_tpu_torch.core.config import ModelConfig
+from tod_tpu_torch.core.registry import register_model
 from tod_tpu_torch.core.types import Detections
 from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
 from tod_tpu_torch.models.fpn import FPN
 from tod_tpu_torch.models.heads import PredictionHead, SemanticHead
 from tod_tpu_torch.models.mobilenetv2 import MobileNetV2
 from tod_tpu_torch.models.protonet import ProtoNet
+from tod_tpu_torch.models.resnet import ResNet
 from tod_tpu_torch.ops.anchors import decode_boxes
 from tod_tpu_torch.ops.masks import masks_to_class_map
 from tod_tpu_torch.ops.nms import fast_nms
@@ -43,15 +45,21 @@ class YolactOutputs:
 class Yolact(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone != "mobilenetv2":
-            raise ValueError(f"backbone {cfg.backbone!r} is not ported yet")
         if cfg.qat:
             raise ValueError("ModelConfig.qat is not ported to tod_tpu_torch yet "
                              "(ROADMAP.md B, M14: training (QAT))")
         self.cfg = cfg
         q = cfg.quantized
-        self.MobileNetV2_0 = MobileNetV2(cfg.width_mult, q)
-        self.FPN_0 = FPN(self.MobileNetV2_0.out_channels, cfg.fpn_channels, cfg.fpn_levels, q)
+        if cfg.backbone == "mobilenetv2":
+            self.backbone_name = "MobileNetV2_0"
+            backbone = MobileNetV2(cfg.width_mult, q)
+        elif cfg.backbone.startswith("resnet"):
+            self.backbone_name = "ResNet_0"
+            backbone = ResNet(cfg.backbone, q)
+        else:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+        self.add_module(self.backbone_name, backbone)
+        self.FPN_0 = FPN(backbone.out_channels, cfg.fpn_channels, cfg.fpn_levels, q)
         self.ProtoNet_0 = ProtoNet(cfg.fpn_channels, cfg.num_prototypes, cfg.proto_channels, q)
         self.PredictionHead_0 = PredictionHead(
             cfg.fpn_channels, cfg.det_num_classes, cfg.num_anchors,
@@ -71,7 +79,7 @@ class Yolact(nn.Module):
     def forward(self, x: torch.Tensor) -> YolactOutputs:
         """x: (B, H, W, 3) normalised images."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        pyramid = self.FPN_0(*self.MobileNetV2_0(x))
+        pyramid = self.FPN_0(*getattr(self, self.backbone_name)(x))
         prototypes = self.ProtoNet_0(pyramid[0]).permute(0, 2, 3, 1)
         outs = [self.PredictionHead_0(p) for p in pyramid]
         return YolactOutputs(
@@ -149,3 +157,20 @@ def detect(outputs: YolactOutputs, cfg: ModelConfig, anchors: torch.Tensor,
         boxes[None].contiguous(),
     )[0]
     return _maps_sample(boxes, scores, classes, valid, masks, cfg, out_hw or cfg.input_size)
+
+
+@register_model("yolact_mnv2_fpn")
+def _yolact_mnv2(cfg: ModelConfig | None = None) -> Yolact:
+    """The default family name: ``cfg.backbone`` decides (a ResNet config
+    built under this name is a ResNet, as in the JAX registry)."""
+    return Yolact(cfg or ModelConfig())
+
+
+@register_model("yolact_r18_fpn")
+def _yolact_r18(cfg: ModelConfig | None = None) -> Yolact:
+    return Yolact(dataclasses.replace(cfg or ModelConfig(), backbone="resnet18"))
+
+
+@register_model("yolact_r50_fpn")
+def _yolact_r50(cfg: ModelConfig | None = None) -> Yolact:
+    return Yolact(dataclasses.replace(cfg or ModelConfig(), backbone="resnet50"))

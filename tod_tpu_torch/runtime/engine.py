@@ -46,6 +46,7 @@ counterpart on a local card.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -66,10 +67,8 @@ from tod_tpu_torch.geometry.fusion import (
     occupancy_layers,
     occupancy_map,
 )
+from tod_tpu_torch.kernels.limits import refuse_kernel_limits
 from tod_tpu_torch.kernels.track import track_banks
-from tod_tpu_torch.models.prepare import prepare_int8_params
-from tod_tpu_torch.models.qconv import is_prepared, load_prepared
-from tod_tpu_torch.models.yolact import Yolact, detect
 from tod_tpu_torch.ops.anchors import generate_anchors
 from tod_tpu_torch.ops.cc_labels import connected_components
 from tod_tpu_torch.ops.packing import unpack_height_balls
@@ -91,17 +90,34 @@ from tod_tpu_torch.track.tracker import init_tracks
 MODES = ("detect", "semantic")
 
 
+def _serving(step):
+    """Run a serve step under ``torch.inference_mode()``, or under
+    ``torch.no_grad()`` while ``torch.export`` traces it (``deploy.py``
+    freezes the steps; an inference tensor cannot be traced)."""
+    @functools.wraps(step)
+    def wrapper(*args, **kwargs):
+        mode = torch.no_grad() if torch.compiler.is_exporting() else torch.inference_mode()
+        with mode:
+            return step(*args, **kwargs)
+
+    return wrapper
+
+
 def serving_model(cfg: PipelineConfig, params: Mapping[str, torch.Tensor] | None,
-                  device: torch.device) -> tuple[Yolact, torch.dtype, torch.Tensor]:
+                  device: torch.device) -> tuple[torch.nn.Module, torch.dtype, torch.Tensor]:
     """``(model, compute dtype, anchors)`` of ``cfg.model`` on ``device``,
     loaded from the state dict ``params`` (the pinned weights when None);
     shared by :class:`Engine` and the multistream engine.  With
     ``ModelConfig.quantized`` a float state dict is prepared for int8 first
     (``_calibrate_int8``), a prepared one is served as it is, and the model
     keeps each tensor's own type (s8 kernels, f32 scales and biases)."""
+    from tod_tpu_torch.core.registry import get_model
+    from tod_tpu_torch.models.qconv import is_prepared, load_prepared
+    from tod_tpu_torch.models.resnet import keep_f32
+
     mcfg = cfg.model
     dtype = getattr(torch, mcfg.dtype)
-    model = Yolact(mcfg)
+    model = get_model(mcfg.name, mcfg)
     state = load_pinned(cfg=mcfg) if params is None else params
     if mcfg.quantized:
         if not is_prepared(state):
@@ -112,6 +128,7 @@ def serving_model(cfg: PipelineConfig, params: Mapping[str, torch.Tensor] | None
         check_state(model, state)
         model.load_state_dict(state)
         model.to(device=device, dtype=dtype).eval()
+        keep_f32(model, state)  # a ResNet's unfolded BatchNorms compute in f32
     return model, dtype, torch.from_numpy(generate_anchors(mcfg)).to(device)
 
 
@@ -122,9 +139,12 @@ def _calibrate_int8(cfg: PipelineConfig, state: Mapping[str, torch.Tensor],
     the model's input size in its dtype run through the dynamic branch of a
     quantized model on ``device`` (on the card, the int8 kernel), then the
     quantization (``models/prepare.py``)."""
+    from tod_tpu_torch.core.registry import get_model
+    from tod_tpu_torch.models.prepare import prepare_int8_params
+
     mcfg = cfg.model
     dtype = getattr(torch, mcfg.dtype)
-    model = Yolact(mcfg)
+    model = get_model(mcfg.name, mcfg)
     check_state(model, state)
     model.to(device=device).eval()
     src = SyntheticSource(cfg.camera, seed=101, n_frames=n_calib)
@@ -159,6 +179,7 @@ class Engine:
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.device = resolve_device(device)
+        refuse_kernel_limits(self.cfg, mode, self.device)
         self.model, self.dtype, self.anchors = serving_model(self.cfg, params, self.device)
         cam = self.cfg.camera
         self.cam_hw = (cam.height, cam.width)
@@ -216,10 +237,10 @@ class Engine:
                 ids = connected_components(cls_map == 3, max_labels=self.cfg.geometry.max_balls)
                 return depth, _empty_detections(mcfg, self.cam_hw, cls_map, ids)
         with record_function("stage/detect"):
-            dets = detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
+            dets = _detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
         return depth, dets
 
-    @torch.inference_mode()
+    @_serving
     def serve_step_scene(self, packed: torch.Tensor):
         """Packed frame -> (height (H, W) f32, balls (max_balls, 4) f32)."""
         depth, dets = self._step(packed)
@@ -229,7 +250,7 @@ class Engine:
             balls = ball_centroids(depth, dets.class_map, dets.id_map, cam, geom)
         return height, balls
 
-    @torch.inference_mode()
+    @_serving
     def serve_step_packed(self, packed: torch.Tensor) -> torch.Tensor:
         """The host-planner mode's step: packed frame -> one uint8 buffer,
         the height map as f16 bytes, then the ball slots as f32 bytes (the
@@ -244,7 +265,7 @@ class Engine:
         uint8 and depth (H, W) uint16, as numpy arrays."""
         return self.serve_step_packed(torch.from_numpy(pack_frame(rgb, depth)))
 
-    @torch.inference_mode()
+    @_serving
     def process(self, frame: Frame) -> tuple[Scene, Detections]:
         """One frame -> (the full scene, its detections) on the device."""
         depth, dets = self._step(torch.from_numpy(pack_frame(frame.rgb, frame.depth)))
@@ -256,13 +277,13 @@ class Engine:
         balls f32) numpy arrays."""
         return unpack_height_balls(buf, *self.cam_hw)
 
-    @torch.inference_mode()
+    @_serving
     def serve_step_plan(self, packed: torch.Tensor) -> torch.Tensor:
         """Packed frame -> (max_path_steps + 1, 2) f32 plan buffer; the
         relaxation's sweep count is ``self.last_sweeps``."""
         return self.plan_scene(*self.serve_step_scene(packed))
 
-    @torch.inference_mode()
+    @_serving
     def plan_scene(self, height: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
         """The device planner on one scene -> the plan buffer.  On the card
         this enqueues work and reads nothing back."""
@@ -290,7 +311,7 @@ class Engine:
         with record_function("stage/track"):
             return track_banks(tracks, balls, self.cfg.tracker, self.cfg.geometry.max_balls)
 
-    @torch.inference_mode()
+    @_serving
     def serve_step_track_plan(self, packed: torch.Tensor, tracks: torch.Tensor):
         """Packed frame and ``(max_tracks, 10)`` bank -> ``(plan, bank)``: the
         tracker kernel updates the bank in place (the same tensor comes back)
@@ -301,7 +322,7 @@ class Engine:
         height, balls = self.serve_step_scene(packed)
         return self.plan_scene(height, self._track(tracks, balls)), tracks
 
-    @torch.inference_mode()
+    @_serving
     def serve_step_track_plan_mem(self, packed: torch.Tensor, tracks: torch.Tensor,
                                   mem: torch.Tensor):
         """:meth:`serve_step_track_plan` with the obstacle memory ->
@@ -529,6 +550,15 @@ class Engine:
         total["fps"] = total["n_frames"] / total["wall_s"] if total["wall_s"] > 0 else 0.0
         total["restarts"] = self.restarts
         return total
+
+
+def _detect(*args, **kwargs) -> Detections:
+    """``models.yolact.detect``, imported at the first frame: the module
+    loads the model code only for an engine that builds a model (an
+    ``ArtifactEngine`` serves a frozen graph without it)."""
+    from tod_tpu_torch.models.yolact import detect
+
+    return detect(*args, **kwargs)
 
 
 def _empty_detections(mcfg, cam_hw, cls_map: torch.Tensor, ids: torch.Tensor) -> Detections:

@@ -32,6 +32,7 @@ import torch
 from tod_tpu_torch.core.config import PipelineConfig, validate
 from tod_tpu_torch.core.device import resolve_device
 from tod_tpu_torch.geometry.fusion import ball_centroids, occupancy_map
+from tod_tpu_torch.kernels.limits import refuse_kernel_limits
 from tod_tpu_torch.kernels.track import track_banks
 from tod_tpu_torch.models.yolact import detect_batch
 from tod_tpu_torch.ops.preprocess import normalize, resize_triangle, unpack_frames
@@ -70,6 +71,7 @@ class MultiStreamEngine:
             raise ValueError("invalid PipelineConfig: " + "; ".join(problems))
         self.n_streams = n_streams
         self.device = resolve_device(device)
+        refuse_kernel_limits(self.cfg, "detect", self.device)
         self.model, self.dtype, self.anchors = serving_model(self.cfg, params, self.device)
         cam = self.cfg.camera
         self.cam_hw = (cam.height, cam.width)

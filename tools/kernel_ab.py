@@ -35,11 +35,12 @@ Before the rounds the old kernels are held against the new ones (K1 within
 each arm's launches are counted, so that a round ran the kernels it names.
 The last line is a JSON object with every reading by arm and metric.
 
-The int8 convolution: the old ``tod_tpu_torch/csrc/qconv.cu`` (its
+The int8 convolution: the old ``tod_tpu_torch/csrc/qconv.cu`` (PR 13's
 ``tod_qconv(x, wq, w_scale, sx, sx_stride, bias, y, dtype, b, cin, h, w,
 cout, k, stride, pad_t, pad_l, ho, wo, groups, divide, bn, stream)`` entry,
-the OIHW kernel as it is) beside this tree's ``kernels.qconv.qconv`` with
-the packed kernel:
+the OIHW kernel as it is, or a later one's ``tod_qconv_dense``, launched by
+this tree's ``kernels.qconv._launch``) beside this tree's
+``kernels.qconv.qconv`` with the packed kernel:
 1. the two held against each other, bit for bit, at every dense conv site
    of the default 256x320 forward (batch 1, bf16);
 2. the ProtoNet 3x3 site, (1, 128, 32, 40) -> 128, K = 1152, bf16: each
@@ -104,6 +105,19 @@ PROTONET = ((128, 32, 40), (128, 128, 3, 3), 1, 1, False)
 def build_old(old_root: pathlib.Path, names) -> dict:
     """Compile the old commit's sources of ``names`` side by side -> entry
     points."""
+    libs = build_old_libs(old_root, names)
+    fns = {}
+    for name, lib in libs.items():
+        entry, argtypes = SIGNATURES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def build_old_libs(old_root: pathlib.Path, names) -> dict:
+    """Compile the old commit's sources of ``names`` side by side -> the
+    loaded libraries."""
     from tod_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ab"
@@ -115,16 +129,13 @@ def build_old(old_root: pathlib.Path, names) -> dict:
         jobs[name] = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                                        str(src)], stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True), so
-    fns = {}
+    libs = {}
     for name, (proc, so) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the old {name}.cu:\n{log}")
-        entry, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
 
 
 def old_wrappers(torch, fns):
@@ -158,10 +169,33 @@ def old_wrappers(torch, fns):
     return assemble_crop_masks, connection_planes
 
 
-def old_qconv(torch, fn):
+def old_qconv(torch, old_root: pathlib.Path) -> tuple:
     """The old int8 kernel behind this tree's ``qconv`` signature (dense
-    sites; the packed kernel is not read)."""
+    sites) -> (the call, its kernel's name).  An old library with this
+    tree's C interface (``tod_qconv_dense``, the packed kernel) is launched
+    by this tree's ``_launch``; PR 13's (``tod_qconv``, the OIHW kernel as
+    it is) by the call below, which does not read the packed kernel."""
+    from unittest import mock
+
+    from tod_tpu_torch.kernels import qconv as qk
     from tod_tpu_torch.kernels.qconv import DTYPES, _pads
+
+    lib = build_old_libs(old_root, ["qconv"])["qconv"]
+    if hasattr(lib, "tod_qconv_dense"):
+        for entry, (argtypes, restype) in qk.SIGNATURES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
+
+        def launch(x, kq, ws, sx, bias, stride=1, groups=1, bn=False, divide=False,
+                   packed=None):
+            if sx.dim() == 0:
+                sx = sx.reshape(1).expand(x.shape[0])
+            with mock.patch.object(qk._build, "load", return_value=lib):
+                return qk._launch(x, kq, ws, sx, bias, stride, groups, bn, divide, packed)
+
+        return launch, "qconv_wgmma_kernel"
+    fn = lib.tod_qconv
+    fn.argtypes, fn.restype = SIGNATURES["qconv"][1], ctypes.c_int
 
     def qconv(x, kq, ws, sx, bias, stride=1, groups=1, bn=False, divide=False, packed=None):
         b, cin, h, w = x.shape
@@ -179,7 +213,7 @@ def old_qconv(torch, fn):
             raise RuntimeError(f"old qconv launch failed: CUDA error {err}")
         return y
 
-    return qconv
+    return qconv, "qconv_dense_kernel"
 
 
 def qconv_ab(old_root: pathlib.Path) -> int:
@@ -194,7 +228,8 @@ def qconv_ab(old_root: pathlib.Path) -> int:
     smi = cs.nvidia_smi_line()
     cs.log(smi)
     _build.build(["qconv"])
-    arms = {"old": old_qconv(torch, build_old(old_root, ["qconv"])["qconv"]), "new": qconv}
+    old, old_kernel = old_qconv(torch, old_root)
+    arms = {"old": old, "new": qconv}
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(14)
 
@@ -213,7 +248,7 @@ def qconv_ab(old_root: pathlib.Path) -> int:
     events = {"old": [], "new": []}
     for name in ("old", "new", "new", "old"):
         events[name].append(cs.time_ms(lambda fn=arms[name]: fn(*proto), torch)[0])
-    floor, own = cs.own_ms(torch, [(lambda: arms["old"](*proto), "qconv_dense_kernel"),
+    floor, own = cs.own_ms(torch, [(lambda: arms["old"](*proto), old_kernel),
                                    (lambda: arms["new"](*proto), "qconv_wgmma_kernel")])
     x, kq = proto[0], proto[1]
     m, k, n = 32 * 40, 128 * 9, 128
