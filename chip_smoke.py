@@ -113,7 +113,18 @@ Phases, each printed as it ends:
 19. the ResNet backbones (M13) on seeded init weights: ResNet18 and
    ResNet50 forwards at batch 16, VGA, bf16; each card against CPU in f32
    at 64x64; one ResNet18 ``--int8`` frame with its launches (``qconv``
-   once a static conv call, the 7x7 stem's among them).
+   once a static conv call, the 7x7 stem's among them);
+20. training (M14) of the default model at bench config 11's size (240x320,
+   batch 8, ``TrainConfig(warmup_steps=2, total_steps=40)``): 20 steps on one
+   synthetic batch (finite losses, the last below the first; one step under
+   the sync check), 8 steps with ``chunk=1`` against ``chunk=4`` and a
+   ``save_state`` / ``load_state`` resume at step 4 against 8 uninterrupted
+   steps (bit for bit, or the largest difference within twice the summed
+   learning rates), one ``Trainer.evaluate`` with plans (K1, K2, K4, the
+   relaxation, the walk and the cc kernel each launched), the trained
+   ``.npz`` served by ``tod_tpu_torch.app --checkpoint`` to a plan, and the
+   step's median time of 20 by CUDA events with its ``FlopCounterMode``
+   GFLOPs and ``mfu``.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -1478,6 +1489,143 @@ def artifact_path(torch, np, state, root, paths):
         raise AssertionError(f"the --todx app fell short: {metrics}")
 
 
+TRAIN_HW, TRAIN_BATCH = (240, 320), 8  # bench config 11's size
+
+
+def params_apart(torch, a, b) -> float:
+    """The largest |a - b| over two trainers' parameters."""
+    with torch.no_grad():
+        return max(float((pa - pb).abs().max())
+                   for pa, pb in zip(a.model.parameters(), b.model.parameters()))
+
+
+def replay(batches):
+    """A ``next_batch()`` source over a fixed list of batches."""
+    class Replay:
+        def __init__(self):
+            self.it = iter(batches)
+
+        def next_batch(self):
+            return next(self.it)
+
+    return Replay()
+
+
+def train_path(torch, np, counters, root):
+    """Phase 20: the default model trained at config 11's size (240x320,
+    batch 8, ``TrainConfig(warmup_steps=2, total_steps=40)``) on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tod_tpu_torch import app
+    from tod_tpu_torch.bench.configs import _mfu, train_flops
+    from tod_tpu_torch.core.config import ModelConfig, TrainConfig
+    from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+    from tod_tpu_torch.train.trainer import device_batch, learning_rate
+
+    dev = torch.device("cuda", 0)
+    mcfg = ModelConfig(input_size=TRAIN_HW)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_steps=2, total_steps=40)
+    quiet = dict(log_every=10**9, log_fn=lambda *_: None)
+
+    def trainer():
+        return Trainer(mcfg, tcfg, device="cuda")
+
+    # 1. 20 steps on one fixed batch; one of them under the sync check
+    t = time.time()
+    tr = trainer()
+    fixed = device_batch(SyntheticDetectionData(TRAIN_HW, batch_size=TRAIN_BATCH,
+                                                seed=3).next_batch(), dev)
+    first, enqueue_ms = sync_checked(torch, lambda: tr.train_step(fixed))
+    losses = [first["loss"]] + [tr.train_step(fixed)["loss"] for _ in range(19)]
+    losses = [float(v) for v in losses]
+    log(f"  1. 20 steps on one batch: loss {[round(v, 4) for v in losses]}; one step under "
+        f"set_sync_debug_mode('error') enqueued in {enqueue_ms:.2f} ms, no host sync "
+        f"({time.time() - t:.1f}s)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over 20 steps on one batch: {losses}")
+
+    # 2. per step against chunk=4 over the same 8 batches
+    src = SyntheticDetectionData(TRAIN_HW, batch_size=TRAIN_BATCH, seed=5)
+    batches = [src.next_batch() for _ in range(8)]
+    per_step, chunked = trainer(), trainer()
+    per_step.train(replay(batches), steps=8, chunk=1, **quiet)
+    chunked.train(replay(batches), steps=8, chunk=4, **quiet)
+    # Adam moves an element at most ~lr a step, so two runs apart by rounding
+    # noise alone stay within twice the summed learning rates
+    bound = 2 * sum(learning_rate(tcfg, c) for c in range(8))
+    worst = params_apart(torch, per_step, chunked)
+    verdict = "bit for bit" if worst == 0.0 else f"largest |difference| {worst:.3e}"
+    log(f"  2. 8 steps per step against chunk=4: {verdict} (tolerance {bound:.3e}, twice the "
+        f"summed learning rates)")
+    if worst > bound:
+        raise AssertionError(f"chunk=4 strayed from per-step training: {worst} > {bound}")
+
+    # 3. save_state at step 4, load_state in a fresh trainer, 4 more steps
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        state = pathlib.Path(tmp) / "state.pt"
+        first_half = trainer()
+        first_half.train(replay(batches[:4]), steps=4, **quiet)
+        first_half.save_state(state)
+        resumed = trainer()
+        resumed.load_state(state)
+        if resumed.step != 4 or resumed.opt.count != 4:
+            raise AssertionError(f"resumed at step {resumed.step}, count {resumed.opt.count}")
+        resumed.train(replay(batches[4:]), steps=4, **quiet)
+    worst = params_apart(torch, per_step, resumed)
+    verdict = "bit for bit" if worst == 0.0 else f"largest |difference| {worst:.3e}"
+    log(f"  3. save_state at 4, load_state, 4 more against 8 uninterrupted: {verdict} "
+        f"(tolerance {bound:.3e})")
+    if worst > bound:
+        raise AssertionError(f"the resumed run strayed: {worst} > {bound}")
+
+    # 4. one in-training evaluation, the serving kernels' launches
+    t = time.time()
+    reset(counters)
+    ev = tr.evaluate(n_scenes=4, plan=True)
+    launches = read(counters)
+    log(f"  4. evaluate on 4 held-out scenes with plans ({time.time() - t:.1f}s): map50 "
+        f"{ev['map50']}, sem_iou {ev['sem_iou']}, plans_found {ev['plans_found']}; launches "
+        f"{launches}")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"evaluate launched no {missing}")
+
+    # 5. the trained weights served by the app through --checkpoint
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        npz = pathlib.Path(tmp) / "trained.npz"
+        tr.save(npz)
+        out = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = app.main(["--checkpoint", str(npz), "--source", "synthetic", "--frames", "2",
+                           "--plan-every", "1", "--no-server", "--metrics-json"])
+        metrics = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  5. app --checkpoint trained.npz: rc {rc}, {metrics.get('n_frames')} frames, "
+        f"plans_done {metrics.get('plans_done')} ({time.time() - t:.1f}s)")
+    if rc != 0 or not metrics.get("plans_done"):
+        raise AssertionError(f"the app did not plan from the trained checkpoint: {metrics}")
+
+    # 6. the step's time by CUDA events, images/s, FLOPs and mfu
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr.train_step(fixed)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    flops = train_flops(tr, fixed)
+    mfu = _mfu(flops, step_ms / 1e3, dev)
+    log(f"  6. train step at batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}: median "
+        f"{step_ms:.3f} ms of 20 by CUDA events, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s, "
+        f"{flops / 1e9:.2f} GFLOPs (FlopCounterMode, forward and backward), mfu {mfu} "
+        f"(bf16 peak), {nvidia_smi_line()}")
+    return step_ms
+
+
 def resnet_path(torch, np, counters):
     """Phase 19: the ResNet backbones (M13) on seeded init weights: the
     ResNet18 and ResNet50 forwards at batch 16, VGA, bf16 (chained step ms
@@ -2822,6 +2970,11 @@ def main() -> int:
     stem_launches = resnet_path(torch, np, int8)
     log(f"  phase 19 took {time.time() - t:.1f}s")
 
+    log("== 20. training (M14) at 240x320, batch 8, and what it trained served")
+    t = time.time()
+    train_ms = train_path(torch, np, semantic, root)
+    log(f"  phase 20 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
@@ -2838,7 +2991,8 @@ def main() -> int:
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"main path median {frame_ms:.2f} ms/frame; semantic {semantic_ms:.2f} ms/frame, "
         f"semantic app {semantic_fps:.3f} fps; tracked+memory {tracked_ms:.2f} ms/frame; int8 "
-        f"{', '.join(f'{hw}: {ms:.2f}' for hw, ms in int8_ms.items())} ms/frame; total "
+        f"{', '.join(f'{hw}: {ms:.2f}' for hw, ms in int8_ms.items())} ms/frame; train step "
+        f"{train_ms:.2f} ms; total "
         f"{time.time() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"ok": True, "device": {

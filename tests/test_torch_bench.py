@@ -37,6 +37,8 @@ METRICS = {
     7: "batch2_model_throughput_64x64",
     8: "fps_latency_bounded_320x240",
     10: "int8_vs_bf16_serve_step_320x240",
+    11: "train_step_batch1_48x64",
+    12: "train_wall_chunked_batch2_48x64",
     13: "batch2_model_throughput_64x64_int8",
     14: "batch_scaling_peak_throughput_64x64",
     15: "backbone_family_batch2_64x64",
@@ -45,7 +47,7 @@ METRICS = {
     19: "tracked_serving_step_delta_ms",
 }
 # the ROADMAP.md item each unported config waits for
-ITEMS = {1: "data/frc_balls.png", 9: "M16", 11: "M14", 12: "M14", 18: "M16"}
+ITEMS = {1: "data/frc_balls.png", 9: "M16", 18: "M16"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
 
@@ -147,11 +149,20 @@ class TestCLI:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             profiling.main(["--qvga-serve"])
 
-    def test_unported_cli_flags_name_their_items(self):
+    def test_unported_cli_flags_name_their_items(self, monkeypatch, capsys):
+        """No profiling flag is unported any more: ``--train`` profiles the
+        flagship's train step phase by phase (here at 48x64, batch 1, with
+        the CPU's aten ops as the timeline)."""
         from tod_tpu_torch.bench import profiling
 
-        with pytest.raises(SystemExit, match="M14"):
-            profiling.main(["--train"])
+        monkeypatch.setattr(profiling, "TRAIN_HW", (48, 64))
+        assert profiling.main(["--train", "--batch", "1"], device="cpu") == 0
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert report["profile"] == "train_step_b1_48x64" and report["timeline"] == "cpu"
+        assert list(report["phases"]) == list(profiling.PHASES)
+        for phase in ("forward", "loss", "backward", "optimizer"):
+            assert report["phases"][phase]["activities"] > 0
+        assert abs(sum(p["share"] for p in report["phases"].values()) - 1.0) < 1e-3
 
 
 def test_power_limit_is_asked_of_the_card_by_its_identity(monkeypatch):

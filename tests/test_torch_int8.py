@@ -522,13 +522,16 @@ def test_app_serves_int8(flags, monkeypatch, capsys):
 
 
 def test_qat_is_refused_naming_its_item():
-    from tod_tpu_torch.runtime.engine import Engine
+    """QAT is ported (M14): ``ModelConfig(quantized=True, qat=True)``
+    validates and builds its serving model (the int8 sites) and its training
+    graph (fake-quantized convs); ``qat`` without ``quantized`` is still
+    refused."""
+    from tod_tpu_torch.models.qconv import QATConv
 
     cfg = tcfg.PipelineConfig(model=tcfg.ModelConfig(quantized=True, qat=True))
-    assert any("M14: training (QAT)" in p for p in tcfg.validate(cfg))
-    with pytest.raises(ValueError, match="M14: training"):
-        Engine(cfg, device="cpu")
-    with pytest.raises(ValueError, match="M14: training"):
-        Yolact(cfg.model)
+    assert tcfg.validate(cfg) == []
+    assert conv_sites(Yolact(cfg.model))
+    train = Yolact(cfg.model, train=True)
+    assert any(isinstance(m, QATConv) for m in train.modules())
     assert any("requires model.quantized" in p for p in tcfg.validate(
         tcfg.PipelineConfig(model=tcfg.ModelConfig(qat=True))))

@@ -421,7 +421,7 @@ class TestServer:
 
 ISOLATED = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "msgpack", "orbax", "PIL", "tod_tpu"):
+for name in ("jax", "flax", "msgpack", "optax", "orbax", "PIL", "tod_tpu"):
     sys.modules[name] = None
 import torch
 import tod_tpu_torch
@@ -455,28 +455,48 @@ save_rgb(png, synth_frame_numpy(0, 5, 224, 224).rgb)
 rc_png = tod_tpu_torch.app.main(["--source", "png", "--image", png, "--mode", "semantic",
                                  "--frames", "2", "--width", "64", "--height", "48",
                                  "--no-server"], device="cpu")
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "tod_tpu", "PIL")
+from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+tiny = config.ModelConfig(input_size=(48, 64), fpn_channels=16, proto_channels=16,
+                          head_channels=16, width_mult=0.35, num_prototypes=8)
+tcfg = config.TrainConfig(batch_size=2, warmup_steps=1, total_steps=4)
+tr = Trainer(tiny, tcfg, device="cpu")
+last = tr.train(SyntheticDetectionData((48, 64), batch_size=2, seed=0), steps=2,
+                log_fn=lambda *_: None)
+ckpt = tempfile.mkdtemp()
+tr.save_state(os.path.join(ckpt, "state.pt"))
+tr.save(os.path.join(ckpt, "trained.npz"))
+back = Trainer(tiny, tcfg, device="cpu")
+back.load_state(os.path.join(ckpt, "state.pt"))
+same = all(torch.equal(a, b) for a, b in zip(tr.model.state_dict().values(),
+                                             back.model.state_dict().values()))
+back.load(os.path.join(ckpt, "trained.npz"))
+trained = int(back.step == 2 and same and last["loss"] > 0)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "tod_tpu", "PIL")
                 and sys.modules[m] is not None)
 bench = sorted(m for m in mods if m.startswith("tod_tpu_torch.bench"))
 print(len(mods), int(plan[0, 0]), int(sem_plan[0, 0]), int(dets.id_map.max()), rc, rc_png,
-      ",".join(bench), loaded)
+      trained, ",".join(bench), loaded)
 """
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no jax, flax, msgpack, orbax or PIL: import
-    every port module (the bench's among them) with those blocked, load the
-    pinned weights, serve one frame in each mode (the semantic one with its
-    balls) and run the app for two frames, then in semantic mode on a PNG
-    that the port's own writer made."""
+    """The card's machine has no jax, flax, msgpack, optax, orbax or PIL:
+    import every port module (the bench's and the trainer's among them) with
+    those blocked, load the pinned weights, serve one frame in each mode
+    (the semantic one with its balls) and run the app for two frames, then
+    in semantic mode on a PNG that the port's own writer made; then train
+    TINY for 2 steps, save its full state and serving tree and resume them
+    in a fresh trainer."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    n_mods, n_valid, n_sem, max_id, rc, rc_png, bench, loaded = out.stdout.split(maxsplit=7)
+    n_mods, n_valid, n_sem, max_id, rc, rc_png, trained, bench, loaded = out.stdout.split(
+        maxsplit=8)
     assert int(n_mods) >= 72 and int(n_valid) > 5 and int(n_sem) > 5 and int(max_id) >= 0
-    assert int(rc_png) == 0
+    assert int(rc_png) == 0 and int(trained) == 1
     assert bench.split(",") == [f"tod_tpu_torch.bench{m}" for m in (
         "", ".__main__", ".boot", ".configs", ".headline", ".mfu", ".profiling")]
     assert int(rc) == 0

@@ -92,8 +92,9 @@ def test_resnet18_int8_engine_serves_static_sites():
 def test_config15_has_the_jax_configs_keys():
     """Config 15 on the CPU at the JAX config's sizes (batch 2 of the narrow
     model at 64x64): the JAX line's keys and metric, each backbone's point
-    with the JAX point's keys, the quality fields null with the item they
-    wait for, and no device metric."""
+    with the JAX point's keys, its throughput-only quality fields
+    (``map50``, ``recall50``) null, and no device metric; the pinned MobileNetV2 weights scored on
+    a hard held-out scene, each ResNet's quality naming its missing file."""
     from tod_tpu.bench.configs import config15_backbone_family
     from tod_tpu_torch.bench.configs import run_config
 
@@ -105,7 +106,12 @@ def test_config15_has_the_jax_configs_keys():
         assert set(q) <= set(p)
         assert p["map50"] is None and p["recall50"] is None and p["mfu"] is None
         assert p["images_per_s"] > 0 and p["step_gflops"] > 0
-    assert "M14" in got["quality"] and got["backend"] == "cpu"
+    assert got["backend"] == "cpu"
+    mnv2 = got["curve"][0]
+    assert 0.0 <= mnv2["map50_hard"] <= 1.0 and mnv2["quality_scenes"] == 1
+    assert got["quality"]["mobilenetv2"].startswith("scored on 1 hard")
+    for backbone in ("resnet18", "resnet50"):
+        assert f"{backbone}.npz is missing" in got["quality"][backbone]
     # the ResNets cost more than MobileNetV2, ResNet50 the most
     flops = [p["step_gflops"] for p in got["curve"]]
     assert flops[0] < flops[1] < flops[2]

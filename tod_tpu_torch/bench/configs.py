@@ -63,6 +63,15 @@ Where the port differs from the JAX configs:
   (``busy_ms``) and their ratio beside the JAX chained fields; config 13's
   FLOPs are the float model's of the same shapes, since ``FlopCounterMode``
   does not see the int8 kernel.
+- Configs 11 and 12 (training): config 11 times a chain of train steps by
+  CUDA events and counts the step's FLOPs with ``FlopCounterMode`` over the
+  forward and the backward (the optimizer's elementwise work is not
+  counted), against config 7's bf16 peak.  Config 15's quality scores the
+  pinned MobileNetV2 weights (``train/evaluate.py`` on
+  ``hard_eval_scenes``); a ResNet is scored only where its ``.npz`` exists
+  (``tod_tpu_torch/weights/<backbone>.npz`` or
+  ``$TOD_BACKBONE_NPZ_DIR/<backbone>.npz``), else the line names the
+  missing file.
 - A config whose modules the port lacks exits naming its ``ROADMAP.md``
   item (``UNPORTED``).
 """
@@ -72,6 +81,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
+import pathlib
 import subprocess
 import time
 
@@ -84,6 +95,7 @@ from tod_tpu_torch.core.config import (
     PipelineConfig,
     PlannerConfig,
     TrackerConfig,
+    TrainConfig,
 )
 from tod_tpu_torch.core.device import resolve_device
 from tod_tpu_torch.core.weights import load_pinned
@@ -537,29 +549,69 @@ def config14_batch_scaling(device=None, k: int | None = None) -> dict:
     }
 
 
-def config15_backbone_family(device=None, k: int | None = None) -> dict:
+def backbone_npz(backbone: str) -> pathlib.Path:
+    """Where config 15 looks for a backbone's weights: the pinned file for
+    MobileNetV2, ``tod_tpu_torch/weights/<backbone>.npz`` (or
+    ``$TOD_BACKBONE_NPZ_DIR/<backbone>.npz`` when set) for a ResNet."""
+    from tod_tpu_torch.core.weights import PINNED
+
+    if backbone == "mobilenetv2":
+        return PINNED
+    root = os.environ.get("TOD_BACKBONE_NPZ_DIR")
+    return (pathlib.Path(root) if root else PINNED.parent) / f"{backbone}.npz"
+
+
+def hard_quality(path: pathlib.Path, backbone: str, device: torch.device,
+                 n_scenes: int = 8) -> dict:
+    """A checkpoint's ``train/evaluate.py`` metrics on ``n_scenes`` scenes of
+    the hard held-out distribution (seed 77) at 240x320."""
+    from tod_tpu_torch.core.weights import load_checkpoint
+    from tod_tpu_torch.train.evaluate import evaluate_engines, hard_eval_scenes, make_eval_engines
+
+    hw = (240, 320)
+    mcfg = ModelConfig(backbone=backbone, input_size=hw)
+    eng, eng_sem = make_eval_engines(hw, mcfg, params=load_checkpoint(path, mcfg), device=device)
+    return evaluate_engines(eng, eng_sem, hw=hw, scenes=hard_eval_scenes(hw, n_scenes, seed=77))
+
+
+def config15_backbone_family(device=None, k: int | None = None,
+                             quality_scenes: int | None = None) -> dict:
     """Config 15: the forward's throughput by backbone (MobileNetV2,
     ResNet18, ResNet50; ``core/registry.py``'s family names) at batch 16,
     VGA, bf16 (batch 2 of the narrow model at 64x64 on the CPU, the JAX
     config's sizes): ``k`` forwards chained, step ms, images/s, GFLOPs and
     ``mfu``.  MobileNetV2 runs the pinned weights on the card, the ResNets
     seeded init weights (the throughput does not depend on the values).
-    The quality fields are null: scoring needs ``train/evaluate.py``,
-    which waits for M14 (training)."""
+    The quality axis: each backbone whose ``.npz`` exists (``backbone_npz``)
+    is scored on ``quality_scenes`` hard held-out scenes at 240x320
+    (``hard_quality``: ``map50_hard``, ``recall50_hard``,
+    ``map50_95_hard``); ``quality`` names the file each other backbone
+    lacks."""
     dev = resolve_device(device)
     on_card = _on_card(dev)
     hw, batch = ((480, 640), 16) if on_card else ((64, 64), 2)
     k = _count(k, dev, 128, 2)
-    curve = []
+    n_quality = _count(quality_scenes, dev, 8, 1)
+    curve, quality = [], {}
     for name, backbone in (("yolact_mnv2_fpn", "mobilenetv2"), ("yolact_r18_fpn", "resnet18"),
                            ("yolact_r50_fpn", "resnet50")):
         mcfg = ModelConfig(name=name, backbone=backbone, input_size=hw,
                            **({} if on_card else CPU_MODEL))
         point = _forward_point(_model(mcfg, dev), batch, hw, k, dev)
-        curve.append({"backbone": backbone, "name": name,
-                      **{key: point[key] for key in ("step_ms", "images_per_s", "step_gflops",
-                                                     "mfu", "max_memory_mb")},
-                      "map50": None, "recall50": None})
+        entry = {"backbone": backbone, "name": name,
+                 **{key: point[key] for key in ("step_ms", "images_per_s", "step_gflops",
+                                                "mfu", "max_memory_mb")},
+                 "map50": None, "recall50": None}
+        npz = backbone_npz(backbone)
+        if npz.is_file():
+            q = hard_quality(npz, backbone, dev, n_quality)
+            entry.update(map50_hard=q["map50"], recall50_hard=q["det_recall_iou50"],
+                         map50_95_hard=q["map50_95"], quality_ckpt=str(npz),
+                         quality_scenes=q["n_scenes"])
+            quality[backbone] = f"scored on {q['n_scenes']} hard held-out scenes"
+        else:
+            quality[backbone] = f"null: no checkpoint, {npz} is missing"
+        curve.append(entry)
     mnv2 = curve[0]
     return {
         "metric": f"backbone_family_batch{batch}_{hw[0]}x{hw[1]}",
@@ -568,7 +620,7 @@ def config15_backbone_family(device=None, k: int | None = None) -> dict:
         "vs_baseline": round(mnv2["images_per_s"] / REF_FRAME_FPS, 3),
         "curve": curve,
         "k": k,
-        "quality": "null: train/evaluate.py waits for ROADMAP.md B, M14 (training)",
+        "quality": quality,
         **_labels(dev),
     }
 
@@ -910,13 +962,142 @@ def config19_tracked_serving(device=None, k: int | None = None, n_frames: int | 
     }
 
 
+def _train_model_cfg(device: torch.device) -> tuple[tuple[int, int], ModelConfig]:
+    """The flagship at 240x320 on the card; the JAX configs' narrow model at
+    48x64 on the CPU (its configs 11 and 12's CPU sizes)."""
+    if _on_card(device):
+        return (240, 320), ModelConfig(input_size=(240, 320))
+    hw = (48, 64)
+    return hw, ModelConfig(input_size=hw, fpn_channels=16, proto_channels=16, head_channels=16,
+                           width_mult=0.35, num_prototypes=8)
+
+
+def train_flops(trainer, batch: dict) -> float:
+    """FLOPs of one train step as ``FlopCounterMode`` counts them: the
+    forward's and the backward's convolutions and matrix products (the step
+    runs, so the trainer moves on by one step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_step(batch)
+    return float(counter.get_total_flops())
+
+
+def _train_point(mcfg: ModelConfig, hw, batch: int, k: int, device: torch.device) -> dict:
+    """One batch size of config 11: ``k`` train steps chained (each reads
+    the parameters the last one wrote) on one synthetic batch (seed 7),
+    timed by CUDA events after a warm step, the best of 2 runs (1 on the
+    CPU, by the host clock); then the step's FLOPs."""
+    from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+    from tod_tpu_torch.train.trainer import device_batch
+
+    trainer = Trainer(mcfg, TrainConfig(batch_size=batch), device=device)
+    b = device_batch(SyntheticDetectionData(hw, batch_size=batch, seed=7).next_batch(), device)
+    on_card = _on_card(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    float(trainer.train_step(b)["loss"])  # warm: cuDNN plans
+    best_ev = best_host = math.inf
+    for _ in range(2 if on_card else 1):
+        sync(device)
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            metrics = trainer.train_step(b)
+        if on_card:
+            end.record()
+        float(metrics["loss"])  # the one readback
+        host = (time.perf_counter() - t0) / k
+        ev = start.elapsed_time(end) / 1e3 / k if on_card else host
+        best_ev, best_host = min(best_ev, ev), min(best_host, host)
+    flops = train_flops(trainer, b)
+    return {
+        "batch": batch,
+        "k": k,
+        "steps_per_s": round(1.0 / best_ev, 3),
+        "step_ms": round(best_ev * 1e3, 4),
+        "step_ms_host": round(best_host * 1e3, 4),
+        "images_per_s": round(batch / best_ev, 2),
+        "step_gflops": round(flops / 1e9, 3),
+        "mfu": _mfu(flops, best_ev, device),
+        "max_memory_mb": (round(torch.cuda.max_memory_allocated(device) / 2**20, 1)
+                          if on_card else None),
+    }
+
+
+def config11_train_throughput(device=None, k: int | None = None) -> dict:
+    """Config 11: training throughput and MFU: one train step of the
+    flagship at 240x320 (forward, YOLACT loss, backward, clipped AdamW) at
+    batch 8, ``k`` steps chained and timed by CUDA events; FLOPs of the
+    forward and backward from ``FlopCounterMode`` against config 7's bf16
+    peak.  One batch-32 point beside it on the card (``scaling``).  On the
+    CPU: batch 1 of the JAX config's narrow model at 48x64."""
+    dev = resolve_device(device)
+    hw, mcfg = _train_model_cfg(dev)
+    on_card = _on_card(dev)
+    k = _count(k, dev, 32, 2)
+    batch = 8 if on_card else 1
+    head = _train_point(mcfg, hw, batch, k, dev)
+    scaling = [_train_point(mcfg, hw, 32, k, dev)] if on_card else []
+    return {
+        "metric": f"train_step_batch{batch}_{hw[0]}x{hw[1]}",
+        "value": head["steps_per_s"],
+        "unit": "steps/s",
+        **{key: head[key] for key in ("step_ms", "step_ms_host", "images_per_s", "step_gflops",
+                                      "mfu", "max_memory_mb", "k")},
+        "scaling": scaling,
+        **_labels(dev),
+    }
+
+
+def config12_chunked_train_wall(device=None, steps: int | None = None) -> dict:
+    """Config 12: wall-clock training throughput of ``Trainer.train`` on
+    fresh procedural batches (seed 11), per step against ``chunk=8`` (the
+    prefetch thread staging 8 batches at a time): ``steps`` steps each after
+    a warm run of one chunk, at batch 8 and 240x320 on the card (batch 2 of
+    the narrow model at 48x64 on the CPU).  The value is the per-step
+    wall over the chunked wall."""
+    from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+
+    dev = resolve_device(device)
+    hw, mcfg = _train_model_cfg(dev)
+    on_card = _on_card(dev)
+    batch, chunk = (8 if on_card else 2), 8
+    steps = _count(steps, dev, 48, 16)
+    tcfg = TrainConfig(batch_size=batch)
+
+    def run(ch: int) -> float:
+        trainer = Trainer(mcfg, tcfg, device=dev)
+        data = SyntheticDetectionData(hw, batch_size=batch, seed=11)
+        quiet = dict(log_every=10**9, log_fn=lambda *_: None, chunk=ch)
+        trainer.train(data, steps=ch, **quiet)  # warm
+        t0 = time.perf_counter()
+        trainer.train(data, steps=steps, **quiet)  # reads the last loss back
+        return (time.perf_counter() - t0) / steps
+
+    per_step_s = run(1)
+    chunked_s = run(chunk)
+    return {
+        "metric": f"train_wall_chunked_batch{batch}_{hw[0]}x{hw[1]}",
+        "value": round(per_step_s / chunked_s, 3),
+        "unit": "x (per-step wall / chunk=8 wall)",
+        "per_step_ms": round(per_step_s * 1e3, 3),
+        "chunk8_ms_per_step": round(chunked_s * 1e3, 3),
+        "chunk8_steps_per_s": round(1.0 / chunked_s, 2),
+        "chunk8_images_per_s": round(batch / chunked_s, 1),
+        "steps": steps,
+        **_labels(dev),
+    }
+
+
 # config -> (what it measures, the ROADMAP.md item it waits for)
 UNPORTED = {
     1: ("single frame on the reference fixture data/frc_balls.png",
         "B: the reference fixture data/frc_balls.png"),
     9: ("data-parallel batch serving over a mesh", "B, M16: multi-GPU"),
-    11: ("train-step throughput and MFU", "B, M14: training"),
-    12: ("wall-clock chunked training", "B, M14: training"),
     18: ("pipeline-parallel serving against the fused graph",
          "B, M16: pipeline-parallel serving"),
 }
@@ -945,6 +1126,8 @@ CONFIGS = {
     7: config7_batch_throughput_mfu,
     8: config8_latency_bounded_serving,
     10: config10_int8_vs_bf16,
+    11: config11_train_throughput,
+    12: config12_chunked_train_wall,
     13: config13_int8_batch_throughput,
     14: config14_batch_scaling,
     15: config15_backbone_family,

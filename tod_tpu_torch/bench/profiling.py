@@ -17,6 +17,12 @@ CLI, on the card::
     python -m tod_tpu_torch.bench.profiling                    # batch-16 VGA forward
     python -m tod_tpu_torch.bench.profiling --int8             # the same, int8 model
     python -m tod_tpu_torch.bench.profiling --qvga-serve [--plan]  # the QVGA serve step
+    python -m tod_tpu_torch.bench.profiling --train            # the batch-8 QVGA train step
+
+``--train`` splits the train step into its phases (``PHASES``): the step
+synchronises the device as each phase ends (``make_train_step``'s ``mark``
+hook, used only here) and marks the profile there, so each device activity
+falls in the window of the phase that launched it.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
-from collections import Counter
+from collections import Counter, defaultdict
 
 import torch
 
@@ -209,6 +215,96 @@ def profile_qvga_serve(plan: bool = False, device=None) -> dict:
             "device": device_info(dev)}
 
 
+PHASES = ("augment", "forward", "loss", "backward", "optimizer")
+
+
+def by_category(own: Counter, ours: tuple[str, ...]) -> Counter:
+    """Own time summed by each kernel's category."""
+    cats: Counter = Counter()
+    for name, us in own.items():
+        cats[category(name, ours)] += us
+    return cats
+TRAIN_HW = (240, 320)  # bench config 11's size
+
+
+def profile_train_step(batch: int = 8, hw=TRAIN_HW, iters: int = ITERS, device=None) -> dict:
+    """Trace ``iters`` train steps of the flagship at ``hw`` and batch
+    ``batch`` (synthetic data, seed 0) after a warm step, phase by phase:
+    each phase's device busy ms a step (the union of its activities), its
+    host ms (the phase's window, the synchronisation at its end included),
+    its share of the step's busy time, its activities and top kernels, and
+    the whole step's ``top_ops`` report."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tod_tpu_torch.bench.configs import device_info, sync
+    from tod_tpu_torch.core.config import ModelConfig, TrainConfig
+    from tod_tpu_torch.core.device import resolve_device
+    from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+    from tod_tpu_torch.train.trainer import device_batch
+
+    dev = resolve_device(device)
+    trainer = Trainer(ModelConfig(input_size=hw), TrainConfig(batch_size=batch), device=dev)
+    b = device_batch(SyntheticDetectionData(hw, batch_size=batch, seed=0).next_batch(), dev)
+
+    def mark(phase: str) -> None:
+        sync(dev)
+        with record_function(f"mark/{phase}"):
+            pass
+
+    trainer.train_step(b, mark)  # warm: cuDNN plans
+    card = dev.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    with profile(activities=activities) as prof:
+        for _ in range(iters):
+            mark("start")
+            trainer.train_step(b, mark)
+    events = list(prof.events())
+    marks = sorted((e.time_range.start, e.name[len("mark/"):]) for e in events
+                   if e.name.startswith("mark/") and e.device_type == DeviceType.CPU)
+    acts = _device_events(events, dev)
+    ours = our_kernels()
+    busy, host, count = defaultdict(float), defaultdict(float), Counter()
+    kernels: dict[str, Counter] = defaultdict(Counter)
+    for (t0, _), (t1, phase) in zip(marks, marks[1:]):
+        if phase == "start":
+            continue
+        host[phase] += t1 - t0
+        spans = sorted((e.time_range.start, e.time_range.end) for e in acts
+                       if t0 <= e.time_range.start < t1)
+        end = float("-inf")
+        for start, stop in spans:
+            busy[phase] += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+        for e in acts:
+            if t0 <= e.time_range.start < t1:
+                count[phase] += 1
+                kernels[phase][e.name] += e.time_range.elapsed_us()
+    total = sum(busy.values())
+    phases = {
+        phase: {
+            "busy_ms": round(busy[phase] / 1e3 / iters, 4),
+            "host_ms": round(host[phase] / 1e3 / iters, 4),
+            "share": round(busy[phase] / total, 4) if total else None,
+            "activities": count[phase] // iters,
+            "categories": {c: round(us / 1e3 / iters, 4)
+                           for c, us in by_category(kernels[phase], ours).most_common()},
+            "top": [{"name": n[:110], "ms": round(us / 1e3 / iters, 4)}
+                    for n, us in kernels[phase].most_common(5)],
+        }
+        for phase in PHASES
+    }
+    report = top_ops(prof, dev, iters)
+    name = f"train_step_b{batch}_{hw[0]}x{hw[1]}"
+    print_report(report, name.replace("_", " ") + " (synchronised at each phase)")
+    print("-- by phase (device busy ms, host ms a step, share of busy) --")
+    for phase, row in phases.items():
+        print(f"  {phase:10s} {row['busy_ms']:9.4f} {row['host_ms']:9.4f} {row['share']}  "
+              f"{row['activities']} activities; top "
+              + ", ".join(f"{k['name'][:40]} {k['ms']}" for k in row["top"][:3]))
+    return {"profile": name, "phases": phases, **report, "device": device_info(dev)}
+
+
 def main(argv=None, device=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -219,8 +315,9 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--int8", action="store_true", help="the forward of the int8 model")
     args = p.parse_args(argv)
     if args.train:
-        raise SystemExit("--train is not ported to tod_tpu_torch yet (ROADMAP.md B, M14: training)")
-    if args.qvga_serve or args.plan:
+        report = profile_train_step(batch=args.batch if args.batch != 16 else 8, hw=TRAIN_HW,
+                                    device=device)
+    elif args.qvga_serve or args.plan:
         report = profile_qvga_serve(plan=args.plan, device=device)
     else:
         report = profile_forward(batch=args.batch, device=device, int8=args.int8)

@@ -3,9 +3,8 @@
 A copy of the dataclasses in the JAX package's ``core/config.py`` that the port's main
 path reads, with the same defaults: camera 640x480, the ``yolact_mnv2_fpn``
 model at a 256x320 input in bfloat16, int8 inference, the fusion constants
-of the reference shaders, the planner's backends and limits, and the ball
-tracker.  Fields of features the port does not run yet (training) arrive
-with them.
+of the reference shaders, the planner's backends and limits, the ball
+tracker and training.
 """
 
 from __future__ import annotations
@@ -55,8 +54,11 @@ class ModelConfig:
     # Whether the int8 preparation quantizes the depthwise kernels too; off,
     # they serve as bfloat16 convolutions inside the int8 graph.
     quantize_depthwise: bool = False
-    # Quantization-aware training (with quantized=True).  Training is not
-    # ported: validate() refuses it.
+    # Quantization-aware training (with quantized=True): the training graph
+    # fake-quantizes each dense conv's weights (per output channel) and
+    # activations (per tensor) with straight-through gradients
+    # (models/qconv.py QATConv), the layout the static int8 serving path
+    # quantizes to; the checkpoint then serves through --int8.
     qat: bool = False
     max_detections: int = 32
     score_threshold: float = 0.3
@@ -173,6 +175,25 @@ class ServerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (``train/trainer.py``): clipped AdamW with a
+    linear warmup and a cosine decay, the YOLACT loss weights."""
+
+    batch_size: int = 8
+    learning_rate: float = 1e-3
+    weight_decay: float = 5e-4
+    warmup_steps: int = 500
+    total_steps: int = 20_000
+    # YOLACT loss weights (cls, box, mask, semantic) per the YOLACT paper
+    loss_weights: tuple[float, float, float, float] = (1.0, 1.5, 6.125, 1.0)
+    cls_loss: str = "ohem"  # "ohem" | "focal"
+    # Augmentation on the device inside the train step (train/augment.py):
+    # flip and photometric jitter drawn per step from the step number.
+    device_augment: bool = False
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Top-level configuration of the frame-to-path pipeline."""
 
@@ -182,6 +203,7 @@ class PipelineConfig:
     planner: PlannerConfig = dataclasses.field(default_factory=PlannerConfig)
     server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
@@ -202,9 +224,6 @@ def validate(cfg: PipelineConfig) -> list[str]:
         problems.append("meaningful_classes exceeds num_classes")
     if cfg.model.qat and not cfg.model.quantized:
         problems.append("model.qat requires model.quantized=True")
-    elif cfg.model.qat:
-        problems.append("model.qat is not ported to tod_tpu_torch yet "
-                        "(ROADMAP.md B, M14: training (QAT))")
     if cfg.model.backbone not in BACKBONES:
         problems.append(f"backbone {cfg.model.backbone!r} is not one of {BACKBONES}")
     if cfg.planner.backend not in PLANNER_BACKENDS:

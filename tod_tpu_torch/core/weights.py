@@ -16,6 +16,12 @@ block's BatchNorms come across unfolded (``scale``, ``bias``, ``mean``,
 ``var``) and its bias-less convs get a zero bias.  Every leaf must be consumed and every state entry filled with the right
 shape, or the carry-across raises.
 
+``train_state_from_tree`` carries the same unfolded tree into a model built
+for training (``Yolact(cfg, train=True)``: kernels to OIHW, every other
+leaf as it is, ``batch_stats`` into the BatchNorms' ``mean`` and ``var``),
+and ``train_state_to_tree`` is its inverse: a model trained by the port
+comes back as that tree, which ``carry_across`` folds for serving.
+
 ``carry_state`` carries the serving state across too: a track bank and an
 obstacle memory of the JAX package's tracked steps.
 
@@ -112,6 +118,46 @@ def carry_across(tree: Mapping[str, np.ndarray],
     if model is not None:
         check_state(model, state)
     return state
+
+
+_STATS = ("mean", "var")  # the leaves Flax keeps under batch_stats
+
+
+def train_state_from_tree(tree: Mapping[str, np.ndarray],
+                          model: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Flat unfolded Flax tree -> the state dict (CPU, float32) of a model
+    built for training; with ``model`` given, checked against its state
+    dict key for key and shape for shape."""
+    state: dict[str, torch.Tensor] = {}
+    for key, value in tree.items():
+        col, _, path = key.partition("/")
+        parent, _, leaf = path.rpartition("/")
+        a = np.asarray(value, dtype=np.float32)
+        if col == "params" and leaf == "kernel":
+            if a.ndim != 4:
+                raise ValueError(f"{key}: expected an HWIO conv kernel, got shape {a.shape}")
+            leaf, a = "weight", a.transpose(3, 2, 0, 1)
+        elif (col == "batch_stats") != (leaf in _STATS):
+            raise ValueError(f"unexpected leaf {key!r} in a training tree")
+        state[f"{parent.replace('/', '.')}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(a))
+    if model is not None:
+        check_state(model, state)
+    return state
+
+
+def train_state_to_tree(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The state dict of a model built for training -> the flat unfolded
+    Flax tree (``params/...`` and ``batch_stats/...``, float32 numpy)."""
+    tree: dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        parent, _, leaf = name.rpartition(".")
+        a = value.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        col = "batch_stats" if leaf in _STATS else "params"
+        # a copy: the tensor may be a live parameter that goes on training
+        tree[f"{col}/{parent.replace('.', '/')}/{leaf}"] = np.array(a, order="C", copy=True)
+    return tree
 
 
 def check_state(model: nn.Module, state: Mapping[str, torch.Tensor]) -> None:

@@ -13,8 +13,47 @@ from tod_tpu_torch.models.qconv import make_conv
 
 def upsample_to(x: torch.Tensor, hw) -> torch.Tensor:
     """Bilinear resize with half-pixel centres (``jax.image.resize`` linear
-    when upsampling), in the input dtype."""
+    when upsampling), in the input dtype.  Where a gradient is asked for,
+    its backward is :class:`_Upsample`'s, which is deterministic."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample.apply(x, tuple(hw))
     return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False)
+
+
+def interp_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) float32 on ``device``: the weights
+    ``F.interpolate(mode="bilinear", align_corners=False)`` gives one axis,
+    with its source index ``in / out * (i + 0.5) - 0.5`` clamped at 0.
+    Built on the device: a host-built copy would wait on the card."""
+    scale = torch.full((), n_in, dtype=torch.float32, device=device) / n_out
+    src = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * scale
+           - 0.5).clamp_min(0.0)
+    i0 = src.long().clamp_max(n_in - 1)
+    i1 = (i0 + 1).clamp_max(n_in - 1)
+    w1 = src - i0.float()
+    cols = torch.arange(n_in, device=device)
+    zero = torch.zeros((), device=device)
+    return (torch.where(cols == i0[:, None], 1.0 - w1[:, None], zero)
+            + torch.where(cols == i1[:, None], w1[:, None], zero))
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate``'s bilinear upsample whose backward is the adjoint
+    of the separable interpolation, two matrix products in float32: on the
+    card ``F.interpolate``'s own backward adds with atomics, in an order
+    that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, hw):
+        ctx.in_hw = tuple(x.shape[-2:])
+        return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hi, wi), (ho, wo) = ctx.in_hw, tuple(g.shape[-2:])
+        my = interp_matrix(hi, ho, g.device)
+        mx = interp_matrix(wi, wo, g.device)
+        return torch.matmul(my.t(), torch.matmul(g.float(), mx)).to(g.dtype), None
 
 
 class FPN(nn.Module):

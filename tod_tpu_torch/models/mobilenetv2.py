@@ -1,7 +1,10 @@
 """MobileNetV2 backbone returning the C3/C4/C5 taps at strides 8/16/32
 (counterpart of the JAX package's ``models/mobilenetv2.py``).  BatchNorm arrives
 folded into each conv's weight and bias; with ``quantized`` each conv is a
-``QConv`` that adds that bias as the folded BatchNorm does."""
+``QConv`` that adds that bias as the folded BatchNorm does.  Built for
+training (a ``models.conv.Training`` mode), each ConvBN is the JAX training
+graph's: a conv with no bias, ``BatchNorm_0`` in f32 on batch statistics,
+ReLU6, then the compute dtype."""
 
 from __future__ import annotations
 
@@ -10,7 +13,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from tod_tpu_torch.models.conv import Training
 from tod_tpu_torch.models.qconv import make_conv
+from tod_tpu_torch.models.resnet import TrainBatchNorm
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -20,23 +25,35 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu6``, whose gradient is 0 at 0 and at 6 (``clamp``'s is 1
+    there: a channel that BatchNorm maps to exactly 0 would pass it on)."""
+    return torch.where((x > 0) & (x < 6), x, x.detach().clamp(0.0, 6.0))
+
+
 class ConvBN(nn.Module):
-    """Conv + folded BN (+ ReLU6)."""
+    """Conv + folded BN (+ ReLU6); in the training form conv, BN, ReLU6."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, act: bool = True, quantized: bool = False):
+                 groups: int = 1, act: bool = True, quantized=False):
         super().__init__()
         self.Conv_0 = make_conv(quantized, cin, cout, kernel, stride, groups, bn=True)
         self.act = act
+        self.train_form = isinstance(quantized, Training)
+        if self.train_form:
+            self.BatchNorm_0 = TrainBatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Conv_0(x)
+        if self.train_form:
+            y = self.BatchNorm_0(x)
+            return (relu6(y) if self.act else y).to(x.dtype)
         return x.clamp(0.0, 6.0) if self.act else x
 
 
 class InvertedResidual(nn.Module):
     def __init__(self, inp: int, features: int, stride: int, expand: int,
-                 quantized: bool = False):
+                 quantized=False):
         super().__init__()
         hidden = inp * expand
         q = quantized
@@ -73,7 +90,7 @@ _TAPS = {2: "c3", 4: "c4", 6: "c5"}
 class MobileNetV2(nn.Module):
     """NCHW input -> (C3, C4, C5)."""
 
-    def __init__(self, width_mult: float = 1.0, quantized: bool = False):
+    def __init__(self, width_mult: float = 1.0, quantized=False):
         super().__init__()
         cin = _make_divisible(32 * width_mult)
         self.ConvBN_0 = ConvBN(3, cin, stride=2, quantized=quantized)

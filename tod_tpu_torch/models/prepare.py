@@ -7,8 +7,9 @@ conv (``core/weights.carry_across``, the arithmetic of the JAX
 steps, on OIHW kernels:
 
 1. ``calibrate_amax``: calibration batches through the dynamic branch of a
-   quantized model; each site records its activation ``max|x|``, the
-   maximum over its calls and the batches.
+   quantized model (the QAT branch of a ``ModelConfig.qat`` model, as the
+   JAX package's calibration runs the model's own convs); each site records
+   its activation ``max|x|``, the maximum over its calls and the batches.
 2. ``quantize_prepared``: each dense kernel becomes ``kernel_q`` s8 (per
    output channel, symmetric), ``w_scale`` and the calibrated ``act_scale``;
    a depthwise kernel is cast to the serve dtype (bfloat16) unless
@@ -32,15 +33,18 @@ from tod_tpu_torch.models.qconv import conv_sites
 
 def calibrate_amax(model: nn.Module, batches: Iterable[torch.Tensor]) -> dict[str, np.float32]:
     """Run ``batches`` (what the model's forward takes) through a quantized
-    model whose every site is in the dynamic branch -> each site's
-    activation amax by site name.  The maxima stay on the model's device
-    until the last batch has run."""
+    model whose every site is in the dynamic branch, or every site in the
+    QAT branch -> each site's activation amax by site name.  The maxima
+    stay on the model's device until the last batch has run."""
     sites = conv_sites(model)
     if not sites:
         raise ValueError("calibrate_amax needs a model built with ModelConfig.quantized")
-    bad = [name for name, m in sites.items() if m.branch != "dynamic"]
+    branch = next(iter(sites.values())).branch
+    bad = [name for name, m in sites.items() if m.branch not in ("dynamic", "qat")
+           or m.branch != branch]
     if bad:
-        raise ValueError(f"calibration runs the dynamic branch; {bad[0]} is {sites[bad[0]].branch}")
+        raise ValueError(f"calibration runs the dynamic or the QAT branch at every site; "
+                         f"{bad[0]} is {sites[bad[0]].branch}")
     ran = False
     try:
         for m in sites.values():

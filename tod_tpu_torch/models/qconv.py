@@ -18,12 +18,22 @@ branch, as the JAX tree does:
   site and moved with the module;
 - **float** (``weight`` in bfloat16, a depthwise kernel that the
   preparation cast): a plain convolution of the values in the kernel's
-  type.
+  type;
+- **qat** (``weight`` f32 and ``bias``, set by ``set_branch`` for a
+  ``ModelConfig.qat`` model's calibration): the fake-quantized f32
+  convolution of the JAX ``Conv8(qat=True)`` (a depthwise one in float),
+  recording ``max|x|`` as the dynamic branch does.
 
 Every branch keeps the port's SAME padding.  The bias is always f32.  A
 ConvBN site (``bn``) adds it after the conv's cast, as the JAX graph's
 folded BatchNorm does.  ``load_prepared`` sets each site's branch from the
 keys of a state dict and loads it.
+
+Quantization-aware training (``ModelConfig.qat``) builds ``QATConv`` at
+every site of the training graph: ``fake_quantize`` rounds a dense conv's
+weights (per output channel) and activations (per tensor) to the int8 grid
+in float, with straight-through gradients (``STERound``) and the clip's
+gradient as ``jnp.clip`` gives it; a depthwise conv stays float.
 """
 
 from __future__ import annotations
@@ -35,10 +45,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tod_tpu_torch.kernels.qconv import pack_kernel, qconv
-from tod_tpu_torch.models.conv import Conv, same_pads
-from tod_tpu_torch.ops.ieee import rdiv
+from tod_tpu_torch.models.conv import Conv, TrainConv, Training, same_pads
+from tod_tpu_torch.ops.ieee import clip, rdiv
 
-BRANCHES = ("dynamic", "static", "float")
+BRANCHES = ("dynamic", "static", "float", "qat")
 
 
 def _scale(amax: torch.Tensor, qmax: int) -> torch.Tensor:
@@ -58,6 +68,35 @@ def quantize_symmetric(x: torch.Tensor, dim=None, bits: int = 8):
     scale = _scale(amax, qmax)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     return q, scale
+
+
+class STERound(torch.autograd.Function):
+    """``round`` with a straight-through gradient (the identity): the
+    quantizer's staircase has zero gradient almost everywhere, so QAT
+    trains through it as if it were the identity."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quantize(x: torch.Tensor, dim=None, bits: int = 8) -> torch.Tensor:
+    """Quantize and dequantize in float with straight-through gradients (the
+    JAX ``fake_quantize``): the values are the int8 grid's, scale =
+    max(amax / 127, 1e-12) as compiled XLA computes it (``_scale``), with
+    the amax over ``dim`` (all of ``x`` when None) taken outside the graph;
+    the gradient is the identity strictly
+    inside the clip, half of it on +-127 (``ops.ieee.clip``) and zero
+    outside."""
+    qmax = 2 ** (bits - 1) - 1
+    with torch.no_grad():
+        amax = x.abs().amax() if dim is None else x.abs().amax(dim=dim, keepdim=True)
+        scale = _scale(amax, qmax)
+    return clip(STERound.apply(x / scale), -qmax, qmax) * scale
 
 
 class QConv(nn.Module):
@@ -90,7 +129,7 @@ class QConv(nn.Module):
             self.register_buffer("act_scale", torch.empty((), device=dev))
             self.register_buffer("packed", None, persistent=False)
         else:
-            dtype = torch.float32 if branch == "dynamic" else serve_dtype
+            dtype = serve_dtype if branch == "float" else torch.float32
             self.weight = nn.Parameter(torch.empty(self.shape, dtype=dtype, device=dev))
         self.branch = branch
 
@@ -117,6 +156,22 @@ class QConv(nn.Module):
         y = F.conv2d(xw, w.float(), None, self.stride, 0, 1, self.groups)
         return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
 
+    def _qat(self, x: torch.Tensor) -> torch.Tensor:
+        """The QAT branch: the f32 convolution of the fake-quantized
+        activations and weights (of the float values at a depthwise site),
+        biased as the dynamic branch's epilogue biases (a ConvBN site after
+        the cast)."""
+        xf = x.float()
+        if self.groups > 1:
+            y = F.conv2d(self._pad(xf), self.weight, None, self.stride, 0, 1, self.groups)
+        else:
+            y = F.conv2d(self._pad(fake_quantize(xf)), fake_quantize(self.weight, dim=(1, 2, 3)),
+                         None, self.stride, 0, 1, self.groups)
+        bias = self.bias.view(1, -1, 1, 1)
+        if self.bn:
+            return (y.to(x.dtype).float() + bias).to(x.dtype)
+        return (y + bias).to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         if self.branch == "static":
@@ -124,22 +179,47 @@ class QConv(nn.Module):
                          self.stride, self.groups, self.bn, packed=self.packed)
         if self.branch == "float":
             return self._float_serve(x)
-        wq, sw = quantize_symmetric(self.weight.float(), dim=(1, 2, 3))
         amax = x.float().abs().amax(dim=(1, 2, 3))
         if self.recording:
             top = amax.max()
             self.amax = top if self.amax is None else torch.maximum(self.amax, top)
+        if self.branch == "qat":
+            return self._qat(x)
+        wq, sw = quantize_symmetric(self.weight.float(), dim=(1, 2, 3))
         sx = _scale(amax, 127)
         packed = pack_kernel(wq) if self.groups == 1 else None
         return qconv(x, wq, sw.view(-1).contiguous(), sx, self.bias, self.stride,
                      self.groups, self.bn, divide=True, packed=packed)
 
 
-def make_conv(quantized: bool, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
+class QATConv(TrainConv):
+    """A conv site of the QAT training graph (the JAX ``Conv8(qat=True)``):
+    the convolution in f32 of the fake-quantized activations (per tensor)
+    by the fake-quantized weights (per output channel), a depthwise one of
+    the float values; the bias in f32; the result in ``dtype``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.groups > 1:
+            y = self.conv(xf, self.weight)
+        else:
+            y = self.conv(fake_quantize(xf), fake_quantize(self.weight, dim=(1, 2, 3)))
+        if self.bias is not None:
+            y = y + self.bias.view(1, -1, 1, 1)
+        return y.to(self.dtype)
+
+
+def make_conv(mode, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
               bn: bool = False) -> nn.Module:
-    """The conv module of a site: ``QConv`` in a quantized model, else
-    ``Conv`` (whose folded BatchNorm is its plain bias)."""
-    if quantized:
+    """The conv module of a site by the model's ``mode``: a ``Training``
+    builds the training graph's site (``QATConv`` with ``qat``, else
+    ``TrainConv``; no bias at a ConvBN site); a true ``mode`` (a quantized
+    model) ``QConv``; else ``Conv`` (whose folded BatchNorm is its plain
+    bias)."""
+    if isinstance(mode, Training):
+        cls = QATConv if mode.qat else TrainConv
+        return cls(cin, cout, k, stride, groups, bias=not bn, dtype=mode.dtype)
+    if mode:
         return QConv(cin, cout, k, stride, groups, bn)
     return Conv(cin, cout, k, stride, groups)
 

@@ -2,7 +2,9 @@
 the JAX package's ``models/yolact.py``).
 
 ``Yolact.forward`` takes NHWC images, as the JAX model does, and returns raw
-head outputs; :func:`detect` turns them into fixed-shape ``Detections``: box
+head outputs (``Yolact(cfg, train=True)`` is the training graph: f32
+parameters, unfolded BatchNorms, QAT's fake-quantized convs with
+``ModelConfig.qat``); :func:`detect` turns them into fixed-shape ``Detections``: box
 decode, softmax, Fast-NMS, mask assembly with the box crop (kernel K1), and
 the per-pixel class and dense ball-id maps.  :func:`detect_batch` does so
 for every sample of a batch, with one K1 launch for the batch.
@@ -19,6 +21,7 @@ from tod_tpu_torch.core.config import ModelConfig
 from tod_tpu_torch.core.registry import register_model
 from tod_tpu_torch.core.types import Detections
 from tod_tpu_torch.kernels.mask_assembly import assemble_crop_masks
+from tod_tpu_torch.models.conv import Training
 from tod_tpu_torch.models.fpn import FPN
 from tod_tpu_torch.models.heads import PredictionHead, SemanticHead
 from tod_tpu_torch.models.mobilenetv2 import MobileNetV2
@@ -43,13 +46,19 @@ class YolactOutputs:
 
 
 class Yolact(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """The YOLACT graph of ``cfg``: the serving form (folded BatchNorms; the
+    int8 sites with ``quantized``, a QAT model's too), or with ``train`` the
+    training form, whose parameters are f32 and whose convs compute in
+    ``cfg.dtype`` (``models.conv.Training``)."""
+
+    def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
-        if cfg.qat:
-            raise ValueError("ModelConfig.qat is not ported to tod_tpu_torch yet "
-                             "(ROADMAP.md B, M14: training (QAT))")
+        if train and cfg.quantized and not cfg.qat:
+            raise ValueError("a quantized model trains only with ModelConfig.qat "
+                             "(quantization-aware training)")
         self.cfg = cfg
-        q = cfg.quantized
+        self.train_form = train
+        q = Training(getattr(torch, cfg.dtype), cfg.qat) if train else cfg.quantized
         if cfg.backbone == "mobilenetv2":
             self.backbone_name = "MobileNetV2_0"
             backbone = MobileNetV2(cfg.width_mult, q)
@@ -71,8 +80,9 @@ class Yolact(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         """The activations' type: the float model's weights' (a model cast
         with ``.to`` computes in that type); ``ModelConfig.dtype`` in an int8
-        model, whose s8, f32 and bf16 tensors do not tell it."""
-        if self.cfg.quantized:
+        model, whose s8, f32 and bf16 tensors do not tell it, and in the
+        training form, whose parameters are f32."""
+        if self.cfg.quantized or self.train_form:
             return getattr(torch, self.cfg.dtype)
         return self.PredictionHead_0.tower.weight.dtype
 

@@ -48,6 +48,21 @@ def decode_boxes(loc: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     return torch.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], dim=-1)
 
 
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`decode_boxes`: gt boxes (..., A, 4) y1x1y2x2 against
+    (A, 4) cycxhw anchors -> (..., A, 4) loc targets."""
+    vc, vs = BOX_VARIANCES
+    gh = (boxes[..., 2] - boxes[..., 0]).clamp_min(1e-8)
+    gw = (boxes[..., 3] - boxes[..., 1]).clamp_min(1e-8)
+    gcy = (boxes[..., 0] + boxes[..., 2]) / 2
+    gcx = (boxes[..., 1] + boxes[..., 3]) / 2
+    ty = (gcy - anchors[:, 0]) / (vc * anchors[:, 2])
+    tx = (gcx - anchors[:, 1]) / (vc * anchors[:, 3])
+    th = torch.log(gh / anchors[:, 2]) / vs
+    tw = torch.log(gw / anchors[:, 3]) / vs
+    return torch.stack([ty, tx, th, tw], dim=-1)
+
+
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU of (..., N, 4) x (..., M, 4) y1x1y2x2 boxes -> (..., N, M)."""
     area_a = (a[..., 2] - a[..., 0]).clamp_min(0) * (a[..., 3] - a[..., 1]).clamp_min(0)

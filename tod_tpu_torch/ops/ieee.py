@@ -14,6 +14,10 @@ where the graph allows it; ``fma`` rounds ``a * b + c`` once, as the card's
 torch's float32 ``sqrt`` on the CPU is within half an ulp but not always
 correctly rounded.  The float64 root of a float32 value, rounded once to
 float32, is the correctly rounded float32 root on every device.
+
+``clip`` is ``clamp`` with JAX's gradient: ``jnp.clip`` is a maximum and a
+minimum, whose gradients split evenly at a tie, so a value lying exactly on
+a bound gets half the incoming gradient (``torch.clamp`` passes all of it).
 """
 
 from __future__ import annotations
@@ -51,3 +55,27 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     even = (s.view(torch.int64) & 1) == 0
     toward = torch.where(err > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
     return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return x.clamp(lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        one, half, zero = (torch.full((), v, dtype=g.dtype, device=g.device)
+                           for v in (1.0, 0.5, 0.0))
+        above = torch.where(x > lo, one, torch.where(x == lo, half, zero))
+        below = torch.where(x < hi, one, torch.where(x == hi, half, zero))
+        return g * above * below, None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x.clamp(lo, hi)`` whose gradient is ``jnp.clip``'s: 1 strictly
+    inside, 1/2 on a bound, 0 outside."""
+    return _Clip.apply(x, lo, hi)

@@ -137,14 +137,19 @@ def _calibrate_int8(cfg: PipelineConfig, state: Mapping[str, torch.Tensor],
     """The static int8 state dict of the folded float ``state``: ``n_calib``
     synthetic frames (seed 101, the training distribution) preprocessed at
     the model's input size in its dtype run through the dynamic branch of a
-    quantized model on ``device`` (on the card, the int8 kernel), then the
-    quantization (``models/prepare.py``)."""
+    quantized model on ``device`` (on the card, the int8 kernel), or with
+    ``ModelConfig.qat`` through its QAT branch, then the quantization
+    (``models/prepare.py``)."""
     from tod_tpu_torch.core.registry import get_model
     from tod_tpu_torch.models.prepare import prepare_int8_params
+    from tod_tpu_torch.models.qconv import conv_sites
 
     mcfg = cfg.model
     dtype = getattr(torch, mcfg.dtype)
     model = get_model(mcfg.name, mcfg)
+    if mcfg.qat:
+        for site in conv_sites(model).values():
+            site.set_branch("qat")
     check_state(model, state)
     model.to(device=device).eval()
     src = SyntheticSource(cfg.camera, seed=101, n_frames=n_calib)
