@@ -124,10 +124,36 @@ Phases, each printed as it ends:
    relaxation, the walk and the cc kernel each launched), the trained
    ``.npz`` served by ``tod_tpu_torch.app --checkpoint`` to a plan, and the
    step's median time of 20 by CUDA events with its ``FlopCounterMode``
-   GFLOPs and ``mfu``.
+   GFLOPs and ``mfu``;
+21. multi-GPU (M16) on the one card: ``DPBatchServer`` over a dp = 1 mesh
+   at 320x240, batch 2, under the sync check, against the card's unsharded
+   batched graph (1e-6 of the largest value, the class map exact);
+   ``TwoStagePipeline`` on (cuda:0, cuda:0) over 4 frames at the app's
+   configuration against the fused ``Engine.serve_step_plan`` (``n_valid``
+   equal, the cost within 1e-3, and whether bit for bit), with its launches
+   and the device busy time of each stage (``stage/pipeline_1`` and
+   ``stage/pipeline_2`` under ``torch.profiler``); the hop to the CPU (the
+   pipeline on (cuda:0, cpu) against the one-card pipeline: K1's masks
+   within 2e-6, the turns within 1e-6, the rest exact); ``pipe.run`` with
+   ``max_inflight=4``, each ``dispatch`` under the sync check; ``python3 -m
+   tod_tpu_torch.app --pipeline`` over 16 frames with a ``GetPath``; a
+   ``Trainer`` over a world-1 NCCL mesh at config 11's size, 2 steps bit for
+   bit the unmeshed trainer's; ``train.run --tp 2``'s refusal; bench
+   configs 9 and 18;
+22. the closed-loop simulator: the oracle loop at 320x240 reaching the
+   ball within 15 ticks (fusion on the card), the tracked loop through a
+   detector blackout (the tracker kernel once a tick), the model-perception
+   loop at 240x320 on the pinned weights in f32 (TF32 off) in
+   ``tests/test_torch_sim.py``'s world (whether it reached: the pinned
+   weights do not see its ball at 2.4 m, as ``tod_tpu``'s do not) and with
+   a ball at 1.5 m, which it must reach, planning with the relaxation on
+   the card, its first tick's plan against the CPU's within the device
+   planner's tolerances; and ``train.evaluate --sim`` on 4 scenes.
 
-Then one JSON line with the kernels, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
+Then one JSON line with the kernels: each kernel's ``launches`` on the
+path it belongs to, and ``launches_by_path``, its count on each path of
+phases 21 and 22, each read just after that path's own reset.  As the last
+line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero.  Without CUDA, or without the package beside it, it exits
 non-zero before printing any result.
 """
@@ -2802,6 +2828,360 @@ def int8_apps(root) -> None:
             raise AssertionError(f"the app {' '.join(args)} fell short: {metrics}")
 
 
+def pipeline_stage_shares(torch, np, pipe, frames) -> dict:
+    """The device's busy ms in each stage of the pipeline, ``stage/pipeline_1``
+    and ``stage/pipeline_2``, over the given frames under ``torch.profiler``:
+    each stage is waited for before the next begins, so every device
+    activity that starts inside a stage's range (the hand-written kernels
+    are filed under no range) belongs to that stage.  None where the
+    profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            for f in frames:
+                rgb = torch.from_numpy(f.rgb).to(pipe.d_fwd)
+                depth = torch.from_numpy(f.depth.astype(np.int32)).to(pipe.d_post)
+                torch.cuda.synchronize()
+                out = pipe.stage1(rgb)
+                torch.cuda.synchronize()
+                pipe.stage2(pipe.hop(out), depth)
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.name in ("stage/pipeline_1", "stage/pipeline_2")
+                    and e.device_type == DeviceType.CPU)
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CUDA and not e.name.startswith("stage/"))
+    if not device:
+        return None
+    busy = {"stage/pipeline_1": 0.0, "stage/pipeline_2": 0.0}
+    for (start, _, name), nxt in zip(ranges, ranges[1:] + [(float("inf"), 0, "")]):
+        busy[name] += union_us([s for s in device if start <= s[0] < nxt[0]]) / 1e3
+    return busy
+
+
+def multi_gpu_path(torch, np, state, root, paths):
+    """Phase 21, M16 on the one card: ``DPBatchServer`` (dp = 1) against the
+    card's unsharded batched graph; ``TwoStagePipeline`` on (cuda:0, cuda:0)
+    against the fused ``Engine.serve_step_plan``, its stage shares, the
+    hop to the CPU, ``run`` with ``dispatch`` under the sync check; the app
+    with ``--pipeline``; a world-1 NCCL mesh's trainer against the
+    unmeshed one; ``train.run --tp 2``'s refusal; bench configs 9 and 18.
+    Returns each path's launches, read just after its own reset."""
+    import os
+    import tempfile
+
+    from tod_tpu_torch.bench.configs import run_config
+    from tod_tpu_torch.core.config import (CameraConfig, ModelConfig, PipelineConfig,
+                                           PlannerConfig, TrainConfig)
+    from tod_tpu_torch.models.yolact import detect, detect_batch
+    from tod_tpu_torch.ops.preprocess import normalize, pack_frame, resize_triangle
+    from tod_tpu_torch.parallel import TwoStagePipeline, make_mesh
+    from tod_tpu_torch.parallel.mesh import join, leave
+    from tod_tpu_torch.parallel.serving import DPBatchServer
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.server import PathStore
+    from tod_tpu_torch.train import SyntheticDetectionData, Trainer
+    from tod_tpu_torch.train.trainer import device_batch
+
+    dev = torch.device("cuda", 0)
+    by_path = {}
+
+    def count(name, path, launches):
+        by_path[path] = launches
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}")
+
+    # 1. DPBatchServer over a dp = 1 mesh, against the unsharded batched graph
+    qvga = PipelineConfig(camera=CameraConfig(width=320, height=240),
+                          model=ModelConfig(input_size=(240, 320)))
+    srv = DPBatchServer(qvga, make_mesh(devices=[dev]), params=state)
+    rgb = np.random.default_rng(0).integers(0, 255, (2, 240, 320, 3), np.uint8)
+    srv.serve(rgb)  # warm
+    reset(paths["dp"])
+    dets, ms = sync_checked(torch, lambda: srv.serve(rgb))
+    launches = read(paths["dp"])
+    model, dtype, anchors = srv.replicas[dev]
+    with torch.inference_mode():
+        x = normalize(resize_triangle(torch.from_numpy(rgb).to(dev), (240, 320)), dtype)
+        ref = detect_batch(model(x), qvga.model, anchors, out_hw=(240, 320))
+    worst = {f: float((getattr(dets, f) - getattr(ref, f)).abs().max()
+                      / max(getattr(ref, f).abs().max().item(), 1.0))
+             for f in ("boxes", "scores", "masks")}
+    same_map = torch.equal(dets.class_map, ref.class_map)
+    log(f"  1. DPBatchServer dp=1, batch 2 at 320x240 under set_sync_debug_mode('error'): "
+        f"enqueued in {ms:.2f} ms, no host sync; launches {launches}; against the unsharded "
+        f"graph: largest |difference| / max {worst} (tol 1e-6), class map equal {same_map}, "
+        f"{int(dets.valid.sum())} detections")
+    count("DPBatchServer", "dp", launches)
+    if max(worst.values()) > 1e-6 or not same_map:
+        raise AssertionError("DPBatchServer disagrees with the unsharded graph")
+
+    # 2. the pipeline on (cuda:0, cuda:0) against the fused engine, app configuration
+    cfg = PipelineConfig(model=ModelConfig(input_size=(480, 640)),
+                         planner=PlannerConfig(backend="tpu"))
+    pipe = TwoStagePipeline(cfg, devices=[dev, dev], params=state)
+    eng = Engine(cfg, state, device="cuda")
+    frames = list(SyntheticSource(cfg.camera, seed=0, n_frames=4).frames())
+    pipe.warmup()
+    eng.warmup()
+    reset(paths["pipeline"])
+    split = [pipe.dispatch(f.rgb, f.depth).cpu().numpy() for f in frames]
+    launches = read(paths["pipeline"])
+    fused = [eng.serve_step_plan(torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory())
+             .cpu().numpy() for f in frames]
+    rows = [(check_plan(np, a, cfg.planner.max_path_steps), int(b[0, 0]),
+             float(a[1:, 0].sum()), float(b[1:, 0].sum()), bool(np.array_equal(a, b)))
+            for a, b in zip(split, fused)]
+    log(f"  2. TwoStagePipeline on (cuda:0, cuda:0) at 640x480 / 480x640 over 4 frames, against "
+        f"Engine.serve_step_plan: (n_valid split, fused, cost split, fused, bit for bit) {rows}; "
+        f"launches {launches}")
+    count("the pipeline", "pipeline", launches)
+    for n_a, n_b, c_a, c_b, _ in rows:
+        if n_a != n_b or abs(c_a - c_b) > 1e-3 * max(abs(c_b), 1.0):
+            raise AssertionError(f"the stage-split plan strayed from the fused one: {rows}")
+    if not any(r[0] for r in rows):
+        raise AssertionError("no pipelined frame planned a path")
+    shares = pipeline_stage_shares(torch, np, pipe, frames)
+    if shares is None:
+        log("  stage shares: the profiler recorded no device activity (not measured)")
+    else:
+        total = sum(shares.values())
+        log(f"  stage shares over 4 frames, device busy ms (torch.profiler, each stage waited "
+            f"for): {({k: round(v, 4) for k, v in shares.items()})}; stage 1 "
+            f"{shares['stage/pipeline_1'] / total:.3f}, stage 2 "
+            f"{shares['stage/pipeline_2'] / total:.3f}; {nvidia_smi_line()}")
+
+    # 3. the hop across devices: stage 2 on the CPU behind the card, 320x240
+    one = TwoStagePipeline(qvga, devices=[dev, dev], params=state)
+    cross = TwoStagePipeline(qvga, devices=[dev, torch.device("cpu")], params=state)
+    worst_turn, worst_mask, same = 0.0, 0.0, []
+    for f in SyntheticSource(qvga.camera, seed=1, n_frames=2).frames():
+        a = one.dispatch(f.rgb, f.depth).cpu().numpy()
+        b = cross.dispatch(f.rgb, f.depth).numpy()
+        n = check_plan(np, a, qvga.planner.max_path_steps)
+        with torch.inference_mode():
+            out = one.stage1(torch.from_numpy(f.rgb).to(dev))
+            da = detect(out, qvga.model, one.anchors, out_hw=(240, 320))
+            db = detect(cross.hop(out), qvga.model, cross.anchors, out_hw=(240, 320))
+        worst_mask = max(worst_mask, float((da.masks.cpu() - db.masks).abs().max()))
+        same.append((n, int(b[0, 0]), bool(np.array_equal(a[1:, 0], b[1:, 0])),
+                     torch.equal(da.class_map.cpu(), db.class_map)))
+        if n:
+            worst_turn = max(worst_turn, float(np.abs(a[1:1 + n, 1] - b[1:1 + n, 1]).max()))
+    log(f"  3. the hop: the pipeline on (cuda:0, cpu) against (cuda:0, cuda:0), 2 frames at "
+        f"320x240: (n_valid card, card+cpu, magnitudes equal, class maps equal) {same}; K1's "
+        f"masks within {worst_mask:.3e} (tol 2e-6), turns within {worst_turn:.3e} (tol 1e-6)")
+    if worst_mask > 2e-6 or worst_turn > 1e-6 or not all(
+            n_a == n_b and mags and maps for n_a, n_b, mags, maps in same):
+        raise AssertionError("the card-plus-CPU pipeline strayed from the one-card pipeline")
+
+    # 4. the streaming loop, dispatch under the sync check
+    dispatch = pipe.dispatch
+    checked = []
+
+    def checked_dispatch(rgb_np, depth_np):
+        plan, ms = sync_checked(torch, lambda: dispatch(rgb_np, depth_np))
+        checked.append(ms)
+        return plan
+
+    pipe.dispatch = checked_dispatch
+    store = PathStore()
+    m = pipe.run(SyntheticSource(cfg.camera, seed=2, n_frames=STREAM_FRAMES),
+                 n_frames=STREAM_FRAMES, path_store=store, warmup=False, max_inflight=4)
+    pipe.dispatch = dispatch
+    log(f"  4. pipe.run, max_inflight=4, {m['n_frames']} frames, each dispatch under "
+        f"set_sync_debug_mode('error') (median enqueue {statistics.median(checked):.2f} ms): "
+        f"fps {m['fps']:.2f}, published path {len(store.get().directions)} directions")
+    if m["n_frames"] != STREAM_FRAMES or store.get().created <= 0:
+        raise AssertionError(f"the pipeline's loop fell short: {m}")
+
+    # 5. the app with --pipeline
+    def get_path(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            sock.sendall(b"GetPath")
+            return read_reply(sock, 8)
+
+    metrics, answer, secs = run_app(root, ["--pipeline", "--frames", "16", "--port", "0"],
+                                    get_path)
+    log(f"  5. app --pipeline: rc 0 in {secs:.1f}s, {metrics['n_frames']} frames, fps "
+        f"{metrics['fps']:.2f}, stages on {metrics['stage1_device']} / "
+        f"{metrics['stage2_device']}; GetPath answered {len(answer)} bytes")
+    if metrics["n_frames"] != 16:
+        raise AssertionError(f"the --pipeline app fell short: {metrics}")
+
+    # 6. a trainer over a world-1 NCCL mesh against the unmeshed trainer
+    train_cfg = TrainConfig(batch_size=TRAIN_BATCH, warmup_steps=2, total_steps=40)
+    mcfg = ModelConfig(input_size=TRAIN_HW)
+    src = SyntheticDetectionData(TRAIN_HW, batch_size=TRAIN_BATCH, seed=7)
+    batches = [device_batch(src.next_batch(), dev) for _ in range(2)]
+    plain = Trainer(mcfg, train_cfg, device="cuda")
+    want = [float(plain.train_step(b)["loss"]) for b in batches]
+    # NCCL's bootstrap on the loopback: the mesh is one host, no network
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        mesh = join(make_mesh(devices=[dev]), 0, os.path.join(tmp, "store"))
+        try:
+            meshed = Trainer(mcfg, train_cfg, mesh=mesh)
+            got = [float(meshed.train_step(b)["loss"]) for b in batches]
+            apart = params_apart(torch, plain, meshed)
+            backend = torch.distributed.get_backend()
+        finally:
+            leave(mesh)
+    log(f"  6. Trainer over a world-1 {backend} mesh (dp=1, tp=1) at {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+        f"batch {TRAIN_BATCH}, 2 steps: losses {got} against the unmeshed {want}; parameters "
+        f"apart by {apart} (bit for bit required)")
+    if got != want or apart != 0.0:
+        raise AssertionError("the world-1 mesh trainer strayed from the unmeshed trainer")
+
+    # 7. train.run --tp 2 on one card
+    out = subprocess.run([sys.executable, "-m", "tod_tpu_torch.train.run", "--tp", "2",
+                          "--steps", "1", "--out", str(root / "build" / "tp2.npz")],
+                         cwd=root, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(root)))
+    log(f"  7. train.run --tp 2: exit {out.returncode}, {out.stderr.strip().splitlines()[-1]!r}")
+    if out.returncode == 0 or "tp=2 does not divide n_devices=1" not in out.stderr:
+        raise AssertionError("train.run --tp 2 did not refuse one card")
+
+    # 8. bench configs 9 and 18
+    for n, counts in ((9, {"n_iter": 20}), (18, {"n_frames": 60})):
+        line = run_config(n, device=dev, **counts)
+        log(f"  8. config {n}: {json.dumps(line)}")
+        if not (line["value"] > 0 and line["device"]["name"] and
+                line["device"]["power_limit_w"] is not None):
+            raise AssertionError(f"config {n} fell short: {line}")
+    return by_path
+
+
+def sim_path(torch, np, root, paths):
+    """Phase 22, ``sim/`` on the card: the oracle closed loop at
+    ``tests/test_torch_sim.py``'s settings (fusion on the card, the native
+    host planner), its tracked variant (the tracker kernel), the model
+    perception loops at 240x320 on the pinned weights (f32, TF32 off; the
+    relaxation kernel plans) with a first tick's plan against the CPU's, and
+    ``train.evaluate --sim`` on 4 scenes.  Returns each path's launches,
+    read just after its own reset."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig, \
+        PlannerConfig, TrackerConfig
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.serve.server import PathStore
+    from tod_tpu_torch.sim import Ball, SimWorld, run_closed_loop
+    from tod_tpu_torch.train import evaluate
+
+    by_path = {}
+
+    def count(name, path, launches):
+        by_path[path] = launches
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}")
+
+    cam = CameraConfig(width=320, height=240)
+    pcfg = PlannerConfig(signed_turns=True, start_offset=160, backend="native")
+
+    # 1. the oracle loop, and the tracked one through a detector blackout
+    t = time.time()
+    reset(paths["oracle"])
+    m = run_closed_loop(SimWorld(balls=[Ball(-700.0, 2400.0)]), cam, pcfg=pcfg, ticks=20,
+                        device="cuda")
+    launches = read(paths["oracle"])
+    log(f"  1. oracle loop at 320x240: reached {m['reached']} in {m['ticks_used']} ticks, final "
+        f"ball {m['final_ball_mm']:.1f} mm; launches {launches} ({time.time() - t:.1f}s)")
+    count("the oracle loop", "sim_oracle", launches)
+    if not m["reached"] or m["ticks_used"] > 15:
+        raise AssertionError(f"the oracle loop did not reach the ball in 15 ticks: {m}")
+    small = CameraConfig(width=160, height=120)
+    reset(paths["tracked"])
+    m = run_closed_loop(SimWorld(balls=[Ball(-900.0, 3000.0, vx=130.0)]), small,
+                        pcfg=dataclasses.replace(pcfg, start_offset=80), ticks=40,
+                        tracker=TrackerConfig(enabled=True, max_misses=12),
+                        measurement_blackout=(2, 8), device="cuda")
+    launches = read(paths["tracked"])
+    dirs = [r.n_dirs for r in m["log"]]
+    log(f"  tracked loop at 160x120 through a blackout of ticks 2-7: reached {m['reached']} in "
+        f"{m['ticks_used']} ticks, path lengths {dirs[:8]}; the tracker kernel launched "
+        f"{launches['track']} times; launches {launches}")
+    count("the tracked loop", "sim_tracked", launches)
+    if not m["reached"] or launches["track"] != m["ticks_used"] or not dirs[2]:
+        raise AssertionError(f"the tracked loop fell short: {m['reached']}, {dirs}")
+
+    # 2. the model loops, f32 on the pinned weights: tests/test_torch_sim.py's world
+    # (its ball at 2.4 m, which the pinned weights do not see, as tod_tpu's do
+    # not), then a ball at 1.5 m that they see, whose loop must reach it; its
+    # first tick's plan against the CPU's
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = PipelineConfig(camera=cam, model=ModelConfig(input_size=(240, 320),
+                                                           dtype="float32"),
+                             planner=dataclasses.replace(pcfg, backend="tpu"))
+        eng = Engine(cfg, mode="detect", device="cuda")
+        t = time.time()
+        far = run_closed_loop(SimWorld(balls=[Ball(-700.0, 2400.0)]), cam, pcfg=cfg.planner,
+                              engine=eng, perception="model", ticks=15)
+        log(f"  2. model loop at 240x320, f32, the pinned weights, the ball at (-700, 2400): "
+            f"reached {far['reached']}, ticks_used {far['ticks_used']}, final_ball_mm "
+            f"{far['final_ball_mm']:.1f}, path lengths {[r.n_dirs for r in far['log']][:4]} "
+            f"({time.time() - t:.1f}s)")
+        firsts = {}
+        for device in ("cuda", "cpu"):
+            store = PathStore()
+            run_closed_loop(SimWorld(balls=[Ball(-500.0, 1500.0)]), cam, pcfg=cfg.planner,
+                            engine=Engine(cfg, mode="detect", device=device),
+                            perception="model", ticks=1, path_store=store)
+            firsts[device] = store.get()
+        t = time.time()
+        reset(paths["model"])
+        m = run_closed_loop(SimWorld(balls=[Ball(-500.0, 1500.0)]), cam, pcfg=cfg.planner,
+                            engine=eng, perception="model", ticks=15)
+        launches = read(paths["model"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    a = np.array(firsts["cuda"].directions, np.float64).reshape(-1, 2)
+    b = np.array(firsts["cpu"].directions, np.float64).reshape(-1, 2)
+    log(f"  the ball at (-500, 1500): reached {m['reached']}, ticks_used {m['ticks_used']}, "
+        f"final_ball_mm {m['final_ball_mm']:.1f}; launches {launches} ({time.time() - t:.1f}s)")
+    count("the model loop", "sim_model", launches)
+    if not m["reached"] or len(a) != len(b) or not len(a):
+        raise AssertionError(f"the model loop fell short: reached {m['reached']}, first tick's "
+                             f"plan {len(a)} directions on the card, {len(b)} on the CPU")
+    # the device planner's tolerances (tests/test_torch_pipeline.py assert_plans_close)
+    ok = (abs(a[:, 0].sum() - b[:, 0].sum()) <= 1e-4 * abs(b[:, 0].sum())
+          and np.allclose(a[:, 0], b[:, 0], rtol=1e-3, atol=1e-3)
+          and np.allclose(a[:, 1], b[:, 1], rtol=0, atol=1e-4))
+    log(f"  first tick card against CPU: {len(a)} directions each, total magnitude "
+        f"{a[:, 0].sum():.4f} against {b[:, 0].sum():.4f}, largest turn difference "
+        f"{np.abs(a[:, 1] - b[:, 1]).max():.3e}: "
+        f"{'within' if ok else 'outside'} the planner tolerances")
+    if not ok:
+        raise AssertionError("the first tick's plan is outside the planner tolerances")
+
+    # 3. train.evaluate --sim on 4 scenes
+    t = time.time()
+    out = io.StringIO()
+    reset(paths["evaluate"])
+    with contextlib.redirect_stdout(out):
+        rc = evaluate.main(["--ckpt", str(root / "tod_tpu_torch" / "weights" / "yolact_dr.npz"),
+                            "--scenes", "4", "--sim"])
+    launches = read(paths["evaluate"])
+    ev = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  3. train.evaluate --sim on 4 scenes: rc {rc}, map50 {ev['map50']}, map50_95 "
+        f"{ev['map50_95']}, sem_iou {ev['sem_iou']}; launches {launches} "
+        f"({time.time() - t:.1f}s)")
+    count("evaluate --sim", "evaluate_sim", launches)
+    if rc != 0 or ev["n_scenes"] != 4 or ev["data"] != "sim":
+        raise AssertionError(f"evaluate --sim fell short: {ev}")
+    return by_path
+
+
 def serve_and_query(path):
     from tod_tpu_torch.core.config import ServerConfig
     from tod_tpu_torch.core.types import Path
@@ -2873,6 +3253,12 @@ def main() -> int:
     semantic = {"cc_labels": root_labels, **serving}
     tracked = {"track": track_banks, **serving}
     int8 = {"qconv": qconv, **serving}
+    fusion = {"bump": dilate_peaks, "connections": connection_planes}
+    m16 = {"dp": {"mask_assembly": assemble_crop_masks}, "pipeline": serving}
+    sim = {"oracle": fusion, "tracked": {"track": track_banks, **fusion},
+           "model": {"mask_assembly": assemble_crop_masks, "relax": bellman_ford_grid, **fusion},
+           "evaluate": {"mask_assembly": assemble_crop_masks, "cc_labels": root_labels,
+                        **fusion}}
 
     log("== 1. device")
     smi = nvidia_smi_line()
@@ -2975,6 +3361,17 @@ def main() -> int:
     train_ms = train_path(torch, np, semantic, root)
     log(f"  phase 20 took {time.time() - t:.1f}s")
 
+    log("== 21. multi-GPU (M16) on one card: DP serving, the pipeline, the NCCL mesh, "
+        "configs 9 and 18")
+    t = time.time()
+    m16_launches = multi_gpu_path(torch, np, state, root, m16)
+    log(f"  phase 21 took {time.time() - t:.1f}s")
+
+    log("== 22. the closed-loop simulator (sim/) and evaluate --sim")
+    t = time.time()
+    sim_launches = sim_path(torch, np, root, sim)
+    log(f"  phase 22 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
@@ -2984,10 +3381,16 @@ def main() -> int:
     launches["track"] = tracked_launches["track"]
     launches["qconv"] = int8_launches["qconv"]
     launches["qconv_stem"] = stem_launches
+    # the paths of phases 21 and 22 keep their own counts, each read just
+    # after its own reset, beside the kernel's count on its own path
+    by_path = {**m16_launches, **sim_launches}
+    log(f"  launches on the paths of phases 21 and 22: {by_path}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "own_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()
+                                 if k["name"] in counts}
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "own_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"main path median {frame_ms:.2f} ms/frame; semantic {semantic_ms:.2f} ms/frame, "
         f"semantic app {semantic_fps:.3f} fps; tracked+memory {tracked_ms:.2f} ms/frame; int8 "

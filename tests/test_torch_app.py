@@ -273,14 +273,6 @@ def test_main_plans_on_the_host(planner, capsys, caplog):
     assert f"planner {planner}: the {planner} host planner" in caplog.text
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--pipeline"], "M16"),
-])
-def test_unported_flags_exit_with_their_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md .*{item}"):
-        main(flags + ["--frames", "1", "--no-server"], device="cpu")
-
-
 @pytest.mark.parametrize("flags", [["--track"], ["--track", "--obstacle-memory", "0.8"]])
 def test_tracking_flags_serve(flags, capsys, caplog):
     """``--track`` (with and without the obstacle memory) takes the device

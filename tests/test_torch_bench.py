@@ -36,6 +36,7 @@ METRICS = {
     6: "fps_e2e_640x480_b1",
     7: "batch2_model_throughput_64x64",
     8: "fps_latency_bounded_320x240",
+    9: "dp1_batch_serving_320x240",
     10: "int8_vs_bf16_serve_step_320x240",
     11: "train_step_batch1_48x64",
     12: "train_wall_chunked_batch2_48x64",
@@ -44,10 +45,11 @@ METRICS = {
     15: "backbone_family_batch2_64x64",
     16: "fps_multistream_sweep_320x240",
     17: "fps_latency_bounded_640x480",
+    18: "pipeline_parallel_vs_fused_320x240",
     19: "tracked_serving_step_delta_ms",
 }
 # the ROADMAP.md item each unported config waits for
-ITEMS = {1: "data/frc_balls.png", 9: "M16", 18: "M16"}
+ITEMS = {1: "data/frc_balls.png"}
 STAGES = ["python", "import_torch", "device_first_touch", "frame_prep", "weights_load",
           "kernel_build_or_load", "warmup", "first_plan"]
 

@@ -471,12 +471,17 @@ same = all(torch.equal(a, b) for a, b in zip(tr.model.state_dict().values(),
                                              back.model.state_dict().values()))
 back.load(os.path.join(ckpt, "trained.npz"))
 trained = int(back.step == 2 and same and last["loss"] > 0)
+import tod_tpu_torch.parallel
+from tod_tpu_torch.sim import Ball, SimWorld, run_closed_loop
+ticked = run_closed_loop(SimWorld(balls=[Ball(-700.0, 2400.0)]),
+                         config.CameraConfig(width=160, height=120), ticks=1,
+                         device="cpu")["log"][0].n_dirs
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "optax", "tod_tpu", "PIL")
                 and sys.modules[m] is not None)
 bench = sorted(m for m in mods if m.startswith("tod_tpu_torch.bench"))
 print(len(mods), int(plan[0, 0]), int(sem_plan[0, 0]), int(dets.id_map.max()), rc, rc_png,
-      trained, ",".join(bench), loaded)
+      trained, ticked, ",".join(bench), loaded)
 """
 
 
@@ -487,16 +492,17 @@ def test_port_runs_without_jax():
     (the semantic one with its balls) and run the app for two frames, then
     in semantic mode on a PNG that the port's own writer made; then train
     TINY for 2 steps, save its full state and serving tree and resume them
-    in a fresh trainer."""
+    in a fresh trainer; then import ``parallel`` and ``sim`` and run one
+    oracle closed-loop tick, which plans a path to the ball."""
     out = subprocess.run(
         [sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    n_mods, n_valid, n_sem, max_id, rc, rc_png, trained, bench, loaded = out.stdout.split(
-        maxsplit=8)
+    n_mods, n_valid, n_sem, max_id, rc, rc_png, trained, ticked, bench, loaded = (
+        out.stdout.split(maxsplit=9))
     assert int(n_mods) >= 72 and int(n_valid) > 5 and int(n_sem) > 5 and int(max_id) >= 0
-    assert int(rc_png) == 0 and int(trained) == 1
+    assert int(rc_png) == 0 and int(trained) == 1 and int(ticked) > 0
     assert bench.split(",") == [f"tod_tpu_torch.bench{m}" for m in (
         "", ".__main__", ".boot", ".configs", ".headline", ".mfu", ".profiling")]
     assert int(rc) == 0

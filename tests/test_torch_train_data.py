@@ -159,8 +159,3 @@ class TestEvaluate:
                             "plans_found"}
         assert out["n_scenes"] == 2 and 0.0 <= out["plans_found"] <= 1.0
         assert set(out["ap50_per_class"]) == set(out["sem_iou"]) == {1, 2, 3}
-
-    @pytest.mark.parametrize("flag", ["--sim", "--report-domains"])
-    def test_sim_evaluations_name_their_item(self, flag):
-        with pytest.raises(SystemExit, match="ROADMAP.md B, M17"):
-            evaluate.main(["--ckpt", "x.npz", flag], device="cpu")

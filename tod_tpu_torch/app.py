@@ -11,6 +11,7 @@ Run as::
     python -m tod_tpu_torch.app --streams 4 --track
     python -m tod_tpu_torch.app --int8
     python -m tod_tpu_torch.app --todx model.todx
+    python -m tod_tpu_torch.app --pipeline
 
 The parser is the JAX package's: the same flags, choices and defaults (a
 640x480 camera, the model at the full frame's 480x640, ``--plan-every 4``,
@@ -37,8 +38,11 @@ at load, each dense conv one launch of the int8 kernel (``csrc/qconv.cu``);
 it goes with every other flag.  ``--todx`` serves a frozen artifact
 (``tod_tpu_torch.deploy``) through the same supervised loop and server,
 building no model; the artifact fixes the mode, camera and model, so the
-flags that would change them exit.  Flags of features the port does not
-have yet exit with a message naming their item in ``ROADMAP.md``.
+flags that would change them exit.  ``--pipeline`` serves stage-split
+(``parallel.TwoStagePipeline``): the forward on the first card, detect,
+fusion and the device planner on the second, every frame planned, the
+freshest plan on the server; with one card both stages share it (a warning
+says so).
 """
 
 from __future__ import annotations
@@ -93,16 +97,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Exit with the ``ROADMAP.md`` item of the first flag the port lacks."""
-    refused = (
-        (args.pipeline, "--pipeline", "B, M16: pipeline-parallel serving"),
-    )
-    for hit, flag, item in refused:
-        if hit:
-            raise SystemExit(f"{flag} is not ported to tod_tpu_torch yet (ROADMAP.md {item})")
-
-
 def _check_conflicts(args) -> None:
     """The JAX app's checks of flags that do not go together."""
     if args.track and args.planner not in ("auto", "tpu"):
@@ -130,7 +124,6 @@ def main(argv=None, device=None) -> int:
     _check_conflicts(args)
     if args.todx:
         return _main_todx(args, device)
-    _refuse_unported(args)
 
     from tod_tpu_torch.core.config import (
         CameraConfig,
@@ -189,6 +182,8 @@ def main(argv=None, device=None) -> int:
 
     if args.streams > 1:
         return _main_multistream(args, cfg, params, make_source, device)
+    if args.pipeline:
+        return _main_pipeline(args, cfg, params, make_source, device)
 
     sources = [make_source()]
     last_source = list(sources)
@@ -243,6 +238,41 @@ def main(argv=None, device=None) -> int:
             metrics["n_frames"], metrics["fps"],
             metrics["stages"].get("plan", {}).get("p50_ms"),
         )
+    return 0
+
+
+def _main_pipeline(args, cfg, params, make_source, device) -> int:
+    """``--pipeline``: stage-split serving (``parallel.TwoStagePipeline``)
+    over the first two cards (or the one device the caller names), every
+    frame planned, the freshest plan on the path server."""
+    from tod_tpu_torch.parallel.mesh import visible_devices
+    from tod_tpu_torch.parallel.pipeline import TwoStagePipeline
+    from tod_tpu_torch.serve.server import PathStore, run_in_thread, stop_thread_server
+
+    devices = visible_devices()[:2] if device is None else [device]
+    if len(devices) < 2:
+        logging.warning("--pipeline with %d device(s): both stages share one device - "
+                        "correct, but the overlap win needs two", len(devices))
+    pipe = TwoStagePipeline(cfg, devices=devices, params=params)
+    store = PathStore()
+    server_thread = server = None
+    if not args.no_server:
+        server_thread, server = run_in_thread(store, cfg.server)
+        logging.info("pipeline-parallel: stage 1 on %s, stage 2 on %s", pipe.d_fwd, pipe.d_post)
+        logging.info("path server on %s:%s", cfg.server.host, server.port)
+    source = make_source()
+    try:
+        metrics = pipe.run(source, n_frames=args.frames, path_store=store)
+    finally:
+        source.close()
+        if server is not None:
+            stop_thread_server(server)
+            server_thread.join(timeout=5)
+    if args.metrics_json:
+        print(json.dumps(metrics, default=float))
+    else:
+        logging.info("done: %d frames, %.1f fps (stage1 %s, stage2 %s)", metrics["n_frames"],
+                     metrics["fps"], metrics["stage1_device"], metrics["stage2_device"])
     return 0
 
 

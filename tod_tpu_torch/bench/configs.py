@@ -72,6 +72,11 @@ Where the port differs from the JAX configs:
   (``tod_tpu_torch/weights/<backbone>.npz`` or
   ``$TOD_BACKBONE_NPZ_DIR/<backbone>.npz``), else the line names the
   missing file.
+- Configs 9 and 18 (multi-GPU) run over the visible cards: on one card
+  config 9 serves with ``dp = 1`` and config 18 puts both stages on it,
+  and neither re-runs itself on a virtual CPU mesh as the JAX configs do
+  (``n_devices`` and ``dp`` say what ran).  Config 18 plans on the device
+  in its fused arm too (``PlannerConfig(backend="tpu")``).
 - A config whose modules the port lacks exits naming its ``ROADMAP.md``
   item (``UNPORTED``).
 """
@@ -1093,13 +1098,103 @@ def config12_chunked_train_wall(device=None, steps: int | None = None) -> dict:
     }
 
 
+def _mesh_devices(device: torch.device, n: int) -> list[torch.device]:
+    """The first ``n`` visible cards, or the one device a CPU run names."""
+    from tod_tpu_torch.parallel.mesh import visible_devices
+
+    return visible_devices()[:n] if _on_card(device) else [device]
+
+
+def config9_dp_batch_serving(device=None, n_iter: int | None = None) -> dict:
+    """Config 9: data-parallel batch serving (``parallel.serving.
+    DPBatchServer``) over a ``(dp, 1)`` mesh of the visible cards (up to
+    8): a batch of ``2 * dp`` random 320x240 frames split over ``dp``,
+    preprocess, the forward and the detection cleanup (K1) on each card,
+    the median ms of ``n_iter`` calls, each waited for on every card.  On
+    one card ``dp`` is 1; it never re-runs itself elsewhere (the JAX config
+    re-runs on an 8-device virtual CPU mesh); on the CPU the mesh is the
+    CPU alone."""
+    from tod_tpu_torch.parallel import make_mesh
+    from tod_tpu_torch.parallel.serving import DPBatchServer
+
+    dev = resolve_device(device)
+    devices = _mesh_devices(dev, 8)
+    mesh = make_mesh(devices=devices)
+    dp = mesh.shape["dp"]
+    cfg = _pipeline_cfg()
+    srv = DPBatchServer(cfg, mesh, params=model_state(cfg.model))
+    b = 2 * dp
+    rgb = np.random.default_rng(0).integers(0, 255, (b, cfg.camera.height, cfg.camera.width,
+                                                      3), np.uint8)
+
+    def wait(_=None):
+        for d in devices:
+            sync(d)
+
+    dets = srv.serve(rgb)
+    wait()
+    ms = _median_ms(lambda: srv.serve(rgb), _count(n_iter, dev, 20, 2), wait)
+    return {
+        "metric": f"dp{dp}_batch_serving_320x240",
+        "value": round(b * 1000.0 / ms, 1),
+        "unit": "frames/s",
+        "vs_baseline": round((b * 1000.0 / ms) / REF_FRAME_FPS, 3),
+        "batch": b,
+        "dp": dp,
+        "step_ms": round(ms, 2),
+        "n_detections": int(dets.valid.sum()),
+        **_labels(dev),
+    }
+
+
+def config18_pipeline_parallel_serving(device=None, n_frames: int | None = None) -> dict:
+    """Config 18: stage-split serving (``parallel.TwoStagePipeline``: the
+    forward on the first card; detect, fusion and the device planner on the
+    second) against the fused ``Engine`` on the same every-frame-planned
+    stream of ``n_frames`` synthetic 320x240 frames (150; 1 on the CPU;
+    ``plan_every=1``,
+    ``max_inflight=4``, the device planner in both).  With one card both
+    stages share it, and ``pipeline_over_fused`` is the split's cost (a
+    second dispatch a frame); the overlap needs two.  It never re-runs
+    itself elsewhere (the JAX config re-runs on a 2-device virtual CPU
+    mesh)."""
+    from tod_tpu_torch.parallel import TwoStagePipeline
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+
+    dev = resolve_device(device)
+    devices = _mesh_devices(dev, 2)
+    cfg = dataclasses.replace(_pipeline_cfg(), planner=PlannerConfig(backend="tpu"))
+    # one frame on the CPU, where the relaxation's plain loop takes seconds
+    n_frames = _count(n_frames, dev, 150, 1)
+    params = model_state(cfg.model)
+
+    pipe = TwoStagePipeline(cfg, devices=devices, params=params)
+    m_pipe = pipe.run(SyntheticSource(cfg.camera, seed=0, n_frames=n_frames), warmup=True)
+    eng = Engine(cfg, params, device=devices[0])
+    eng.warmup()
+    m_fused = eng.run(SyntheticSource(cfg.camera, seed=0, n_frames=n_frames), plan_paths=True,
+                      warmup=False, plan_every=1, max_inflight=4)
+    ratio = m_pipe["fps"] / m_fused["fps"] if m_fused["fps"] > 0 else None
+    return {
+        "metric": "pipeline_parallel_vs_fused_320x240",
+        "value": round(m_pipe["fps"], 2),
+        "unit": "frames/s (2-stage)",
+        "vs_baseline": round(m_pipe["fps"] / REF_FRAME_FPS, 3),
+        "fused_fps": round(m_fused["fps"], 2),
+        "pipeline_over_fused": round(ratio, 3) if ratio else None,
+        "stage1_device": m_pipe["stage1_device"],
+        "stage2_device": m_pipe["stage2_device"],
+        "n_devices": len(set(devices)),
+        "n_frames": m_pipe["n_frames"],
+        **_labels(dev),
+    }
+
+
 # config -> (what it measures, the ROADMAP.md item it waits for)
 UNPORTED = {
     1: ("single frame on the reference fixture data/frc_balls.png",
         "B: the reference fixture data/frc_balls.png"),
-    9: ("data-parallel batch serving over a mesh", "B, M16: multi-GPU"),
-    18: ("pipeline-parallel serving against the fused graph",
-         "B, M16: pipeline-parallel serving"),
 }
 
 
@@ -1125,6 +1220,7 @@ CONFIGS = {
     6: config6_streaming_e2e_vga,
     7: config7_batch_throughput_mfu,
     8: config8_latency_bounded_serving,
+    9: config9_dp_batch_serving,
     10: config10_int8_vs_bf16,
     11: config11_train_throughput,
     12: config12_chunked_train_wall,
@@ -1133,6 +1229,7 @@ CONFIGS = {
     15: config15_backbone_family,
     16: config16_multistream_serving,
     17: config17_latency_bounded_vga,
+    18: config18_pipeline_parallel_serving,
     19: config19_tracked_serving,
     **{n: _unported(n) for n in UNPORTED},
 }

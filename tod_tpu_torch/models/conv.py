@@ -77,9 +77,16 @@ class TrainConv(Conv):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.finish(self.compute(x))
+
+    def compute(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without the bias (a tensor-parallel site gathers
+        its output channels between the two, ``parallel/sharding.py``)."""
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         if x.device.type == "cpu" and self.dtype != torch.float32:
-            y = self.conv(x.float(), w.float()).to(self.dtype)
-        else:
-            y = self.conv(x, w)
+            return self.conv(x.float(), w.float()).to(self.dtype)
+        return self.conv(x, w)
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        """The bias, where the site has one, added in ``dtype``."""
         return y if self.bias is None else y + self.bias.to(self.dtype).view(1, -1, 1, 1)

@@ -198,12 +198,13 @@ class QATConv(TrainConv):
     by the fake-quantized weights (per output channel), a depthwise one of
     the float values; the bias in f32; the result in ``dtype``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def compute(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.groups > 1:
-            y = self.conv(xf, self.weight)
-        else:
-            y = self.conv(fake_quantize(xf), fake_quantize(self.weight, dim=(1, 2, 3)))
+            return self.conv(xf, self.weight)
+        return self.conv(fake_quantize(xf), fake_quantize(self.weight, dim=(1, 2, 3)))
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.dtype)

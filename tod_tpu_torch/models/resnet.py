@@ -59,6 +59,9 @@ class TrainBatchNorm(BatchNorm):
 
     def __init__(self, channels: int):
         super().__init__(channels)
+        # over a dp mesh, ``xf -> (E[x], E[x^2])`` of the global batch
+        # (``parallel/sharding.py dp_moments``); None: the batch's own
+        self.moments_over = None
         for t in (self.scale, self.var):
             nn.init.ones_(t)
         for t in (self.bias, self.mean):
@@ -68,8 +71,12 @@ class TrainBatchNorm(BatchNorm):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.moments_over is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            mean, sq = self.moments_over(xf)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
             self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

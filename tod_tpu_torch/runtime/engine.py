@@ -250,10 +250,7 @@ class Engine:
         """Packed frame -> (height (H, W) f32, balls (max_balls, 4) f32)."""
         depth, dets = self._step(packed)
         with record_function("stage/fusion"):
-            cam, geom = self.cfg.camera, self.cfg.geometry
-            height = occupancy_map(depth, dets.class_map, cam, geom)
-            balls = ball_centroids(depth, dets.class_map, dets.id_map, cam, geom)
-        return height, balls
+            return height_and_balls(depth, dets, self.cfg)
 
     @_serving
     def serve_step_packed(self, packed: torch.Tensor) -> torch.Tensor:
@@ -292,15 +289,7 @@ class Engine:
     def plan_scene(self, height: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
         """The device planner on one scene -> the plan buffer.  On the card
         this enqueues work and reads nothing back."""
-        pcfg = self.cfg.planner
-        plan, self._sweeps = plan_on_device(
-            height, balls, self.start_yx,
-            max_seeds=pcfg.max_seed_balls,
-            min_pixels=pcfg.min_ball_pixels,
-            max_steps=pcfg.max_path_steps,
-            max_iters=pcfg.tpu_max_iters,
-            signed=pcfg.signed_turns,
-        )
+        plan, self._sweeps = plan_device(height, balls, self.start_yx, self.cfg.planner)
         return plan
 
     def _init_tracks(self) -> torch.Tensor:
@@ -555,6 +544,26 @@ class Engine:
         total["fps"] = total["n_frames"] / total["wall_s"] if total["wall_s"] > 0 else 0.0
         total["restarts"] = self.restarts
         return total
+
+
+def height_and_balls(depth: torch.Tensor, dets: Detections, cfg: PipelineConfig):
+    """The serve steps' fusion: (height (H, W) f32, balls (max_balls, 4)
+    f32), without the connection planes that only ``fuse_scene`` adds."""
+    cam, geom = cfg.camera, cfg.geometry
+    return (occupancy_map(depth, dets.class_map, cam, geom),
+            ball_centroids(depth, dets.class_map, dets.id_map, cam, geom))
+
+
+def plan_device(height: torch.Tensor, balls: torch.Tensor, start_yx, pcfg):
+    """The device planner on one scene -> (plan buffer, relaxation sweeps)."""
+    return plan_on_device(
+        height, balls, start_yx,
+        max_seeds=pcfg.max_seed_balls,
+        min_pixels=pcfg.min_ball_pixels,
+        max_steps=pcfg.max_path_steps,
+        max_iters=pcfg.tpu_max_iters,
+        signed=pcfg.signed_turns,
+    )
 
 
 def _detect(*args, **kwargs) -> Detections:

@@ -10,16 +10,20 @@ mask-assembly, terrain, connection and connected-components kernels), and
 with ``plan`` each detect-mode scene is also planned on the device (the
 relaxation and path-walk kernels), which adds ``plans_found``.
 
-``--sim`` and ``--report-domains`` score against the sim renderer, which the
-port does not have yet: they exit naming ``ROADMAP.md`` B, M17.
+``--sim`` scores against scenes of the sim renderer (``sim/camera.py``), a
+generator the trainer never saw, and ``--report-domains`` scores the same
+checkpoint on the held-out procedural scenes, the sim scenes and, where
+their images are present, the hand-labelled real fixtures
+(``tests/fixtures/real``), side by side.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 
-SIM_REFUSAL = "the sim renderer is not ported to tod_tpu_torch yet (ROADMAP.md B, M17: sim/)"
+REAL_FIXTURES = pathlib.Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "real"
 
 
 def box_iou(a, b) -> float:
@@ -141,6 +145,74 @@ def disk_eval_scenes(root, hw, n_scenes: int):
     data = DiskDetectionData(root, hw, batch_size=1, shuffle=False)
     for i in range(min(n_scenes, len(data))):
         yield data._load_example(data.images[i])
+
+
+def sim_eval_scenes(hw, n_scenes: int, seed: int = 0):
+    """Cross-domain scenes from the sim renderer (``sim/camera.py``):
+    perspective geometry, flat shading and floor-plane depth, where the
+    trainer saw the 2-D procedural painter.  Yields the evaluator's scene
+    tuples; the instance masks are the connected components
+    (``scipy.ndimage.label``) of each class of the renderer's class map
+    (the worlds space their objects widely, so same-class merges are rare,
+    and one only makes the score stricter)."""
+    import numpy as np
+    from scipy import ndimage
+
+    from tod_tpu_torch.core.config import CameraConfig
+    from tod_tpu_torch.sim.camera import render
+    from tod_tpu_torch.sim.world import Ball, Obstacle, SimWorld
+    from tod_tpu_torch.train.synthetic_data import MAX_OBJECTS
+
+    h, w = hw
+    cam = CameraConfig(width=w, height=h)
+    rng = np.random.default_rng(seed)
+    for i in range(n_scenes):
+        balls = [
+            Ball(x=float(rng.uniform(-1400, 1400)), z=float(rng.uniform(700, 3200)))
+            for _ in range(int(rng.integers(1, 4)))
+        ]
+        obstacles = [
+            Obstacle(
+                x=float(rng.uniform(-1600, 1600)),
+                z=float(rng.uniform(900, 3600)),
+                team=("red" if rng.random() < 0.5 else "blue"),
+            )
+            for _ in range(int(rng.integers(0, 3)))
+        ]
+        world = SimWorld(balls=balls, obstacles=obstacles)
+        frame, cls_map, _ids = render(world, cam, seed=seed * 1000 + i, annotate=True)
+
+        boxes = np.zeros((MAX_OBJECTS, 4), np.float32)
+        classes = np.zeros((MAX_OBJECTS,), np.int32)
+        valid = np.zeros((MAX_OBJECTS,), bool)
+        inst = np.zeros((MAX_OBJECTS, h, w), np.float32)
+        k = 0
+        for c in (1, 2, 3):
+            lab, n = ndimage.label(cls_map == c)
+            for j in range(1, n + 1):
+                m = lab == j
+                if m.sum() < 30 or k >= MAX_OBJECTS:
+                    continue
+                ys, xs = np.nonzero(m)
+                boxes[k] = [
+                    ys.min() / h, xs.min() / w, (ys.max() + 1) / h, (xs.max() + 1) / w,
+                ]
+                classes[k] = c
+                valid[k] = True
+                inst[k] = m.astype(np.float32)
+                k += 1
+        yield frame.rgb, boxes, classes, valid, inst, cls_map.astype(np.int32)
+
+
+def fixture_images_present(root=REAL_FIXTURES) -> bool:
+    """Whether an annotated dataset's annotations and every image they name
+    (absolute, or relative to ``root``) are on disk."""
+    root = pathlib.Path(root)
+    ann = root / "annotations.json"
+    if not ann.is_file():
+        return False
+    images = json.loads(ann.read_text())["images"]
+    return all((root / rec["file"]).is_file() for rec in images)
 
 
 def hard_eval_scenes(hw, n_scenes: int, seed: int = 0):
@@ -393,13 +465,13 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--backbone", default=None,
                    help="model family member of the checkpoint (ModelConfig.backbone)")
     p.add_argument("--sim", action="store_true",
-                   help="sim-renderer scenes (not ported: ROADMAP.md B, M17)")
+                   help="evaluate against sim-renderer scenes (sim/camera.py): a cross-domain "
+                   "generator the trainer never saw")
     p.add_argument("--report-domains", action="store_true",
-                   help="procedural, sim and real fixtures side by side (not ported: "
-                   "ROADMAP.md B, M17)")
+                   help="one JSON with the same checkpoint scored on held-out procedural "
+                   "scenes, sim-renderer scenes and, where their images are present, the "
+                   "hand-labelled real fixtures (tests/fixtures/real)")
     args = p.parse_args(argv)
-    if args.sim or args.report_domains:
-        raise SystemExit(SIM_REFUSAL)
     hw_cli = None
     if args.hw:
         hh, ww = args.hw.lower().split("x")
@@ -410,7 +482,25 @@ def main(argv=None, device=None) -> int:
 
         mcfg = ModelConfig(input_size=hw_cli or (240, 320), quantized=args.int8,
                            backbone=args.backbone or "mobilenetv2")
-    if args.data or args.hard:
+    if args.report_domains:
+        from tod_tpu_torch.core.weights import load_checkpoint
+
+        hw = mcfg.input_size if mcfg else (240, 320)
+        eng, eng_sem = make_eval_engines(hw, mcfg, params=load_checkpoint(args.ckpt, mcfg),
+                                         device=device)
+        out = {
+            "checkpoint": args.ckpt,
+            "procedural_held_out": evaluate_engines(eng, eng_sem, n_scenes=args.scenes,
+                                                    seed=args.seed, hw=hw),
+            "sim_cross_domain": evaluate_engines(
+                eng, eng_sem, hw=hw, scenes=sim_eval_scenes(hw, args.scenes, seed=args.seed)),
+        }
+        if fixture_images_present():
+            out["real_fixtures"] = evaluate_engines(
+                eng, eng_sem, hw=hw, scenes=disk_eval_scenes(str(REAL_FIXTURES), hw, 2))
+        print(json.dumps(out))
+        return 0
+    if args.data or args.sim or args.hard:
         from tod_tpu_torch.core.weights import load_checkpoint
 
         hw = mcfg.input_size if mcfg else (240, 320)
@@ -418,11 +508,13 @@ def main(argv=None, device=None) -> int:
                                          device=device)
         if args.data:
             scenes = disk_eval_scenes(args.data, hw, args.scenes)
-        else:
+        elif args.hard:
             scenes = hard_eval_scenes(hw, args.scenes, seed=args.seed)
+        else:
+            scenes = sim_eval_scenes(hw, args.scenes, seed=args.seed)
         out = evaluate_engines(eng, eng_sem, hw=hw, scenes=scenes)
         out["checkpoint"] = args.ckpt
-        out["data"] = args.data if args.data else "hard"
+        out["data"] = args.data if args.data else ("hard" if args.hard else "sim")
     else:
         out = evaluate(args.ckpt, n_scenes=args.scenes, seed=args.seed,
                        hw=hw_cli or (240, 320), mcfg=mcfg, device=device)

@@ -8,8 +8,11 @@ serving tree as an ``.npz`` that the app serves with ``python -m
 tod_tpu_torch.app --checkpoint OUT.npz`` (``--int8`` for a ``--qat`` model).
 ``--resume`` continues a full training state written by
 ``--save-full-state`` / ``--state-every`` (``OUT_state.pt``); ``--init-from``
-warm-starts the parameters from a serving tree.  ``--tp`` above 1 exits
-naming ``ROADMAP.md`` B, M16.
+warm-starts the parameters from a serving tree.  ``--tp N`` above 1 lays a
+``(dp, tp)`` mesh over the visible cards (``parallel.make_mesh``, ``tp``
+dividing their count) and trains one slot of it a process
+(``parallel.mesh.launch``): the same trajectory as one device, sharded; slot
+0 logs and writes.
 """
 
 from __future__ import annotations
@@ -131,14 +134,36 @@ def main(argv=None, device=None) -> int:
         "run continues from the restored step to it",
     )
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: ROADMAP.md B, M16)")
+                   help="tensor-parallel degree: a (dp, tp) mesh over the visible cards, one "
+                   "process a card")
     args = p.parse_args(argv)
-    if args.tp > 1:
-        raise SystemExit("--tp (tensor parallel over several cards) is not ported to "
-                         "tod_tpu_torch yet (ROADMAP.md B, M16: multi-GPU)")
     if args.init_from and args.resume:
         p.error("--init-from and --resume are mutually exclusive")
+    if args.tp > 1:
+        import os
+        import tempfile
 
+        from tod_tpu_torch.parallel.mesh import launch, make_mesh
+
+        try:
+            # the visible cards, or the one device the caller names
+            mesh = make_mesh(tp=args.tp, devices=None if device is None else [device])
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+        with tempfile.TemporaryDirectory() as tmp:
+            launch(mesh, _slot, args, store_path=os.path.join(tmp, "store"))
+        return 0
+    return train(args, device)
+
+
+def _slot(mesh, args) -> None:
+    """One slot of ``--tp``'s mesh, in its own process."""
+    train(args, mesh=mesh)
+
+
+def train(args, device=None, mesh=None) -> int:
+    """Train as the parsed ``args`` say on ``device``, or as one slot of
+    ``mesh`` (this process joined to it)."""
     import dataclasses
 
     from tod_tpu_torch.core.config import ModelConfig, TrainConfig
@@ -155,19 +180,20 @@ def main(argv=None, device=None) -> int:
         warmup_steps=min(500, max(args.steps // 10, 1)), cls_loss=args.cls_loss,
         device_augment=args.device_augment,
     )
-    trainer = Trainer(mcfg, tcfg, device=device)
+    trainer = Trainer(mcfg, tcfg, device=device, mesh=mesh)
+    say = print if trainer.writes else (lambda *_: None)
     run_steps = args.steps
     if args.init_from:
         trainer.load(args.init_from)
-        print(f"warm-started params from {args.init_from}")
+        say(f"warm-started params from {args.init_from}")
     if args.resume:
         trainer.load_state(args.resume)
         done = trainer.step
-        print(f"resumed from {args.resume} at step {done}")
+        say(f"resumed from {args.resume} at step {done}")
         if args.state_every:
             # --steps is the total target; the schedule is unchanged
             run_steps = max(args.steps - done, 0)
-            print(f"continuing {run_steps} steps to the {args.steps} target")
+            say(f"continuing {run_steps} steps to the {args.steps} target")
     if args.data:
         from tod_tpu_torch.train import DiskDetectionData
 
@@ -203,12 +229,12 @@ def main(argv=None, device=None) -> int:
         state_every=args.state_every,
     )
     trainer.save(args.out)
-    print(f"saved checkpoint to {args.out}")
+    say(f"saved checkpoint to {args.out}")
     if args.save_full_state:
         trainer.save_state(state)
-        print(f"full training state saved to {state}")
+        say(f"full training state saved to {state}")
     if args.eval_every:
-        print(f"best-eval checkpoint kept at {best}")
+        say(f"best-eval checkpoint kept at {best}")
     return 0
 
 

@@ -76,9 +76,13 @@ class AdamW:
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, tcfg: TrainConfig):
+    def __init__(self, params, tcfg: TrainConfig, global_norm=None):
         self.params = list(params)
         self.tcfg = tcfg
+        # the gradient's global norm; over a tp mesh the slots' pieces
+        # joined (``parallel/sharding.py tp_global_norm``)
+        self.global_norm = global_norm or (
+            lambda grads: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
@@ -92,7 +96,7 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads) -> None:
         grads = list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads)
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
         torch._foreach_mul_(grads, torch.where(norm < CLIP_NORM, one, CLIP_NORM / norm))
         torch._foreach_mul_(self.mu, self.b1)
@@ -149,13 +153,20 @@ def deterministic_cudnn():
                    deterministic=True, allow_tf32=c.allow_tf32)
 
 
-def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig) -> Callable:
+def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig,
+                    layout=None) -> Callable:
     """``step(batch, index, mark=None) -> metrics``: one optimizer step of
     ``model`` on ``batch`` (tensors on the model's device) as step number
     ``index``; ``metrics`` are 0-dim tensors (``loss``, ``cls``, ``box``,
     ``mask``, ``sem``) of the loss before the update.  ``mark(phase)``, when
     given, is called as each phase ends (``augment``, ``forward``,
-    ``loss``, ``backward``, ``optimizer``): the profiler's hook."""
+    ``loss``, ``backward``, ``optimizer``): the profiler's hook.
+
+    With ``layout`` (a ``parallel.sharding.SlotLayout``, the model sharded
+    by ``parallel.sharding.shard_model``) ``batch`` is this slot's ``dp``
+    slice of the global batch: the device augmentation draws for the global
+    batch and takes the slot's rows, and the gradients and the metrics are
+    averaged over ``dp``."""
     from tod_tpu_torch.train.augment import apply_augment, draw_augment, step_generator
 
     def step(batch: dict, index: int, mark=None) -> dict[str, torch.Tensor]:
@@ -166,7 +177,12 @@ def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig)
         if tcfg.device_augment:
             img = batch["image"]
             gen = step_generator(tcfg.seed, index, img.device)
-            batch = apply_augment(batch, draw_augment(gen, img.shape[0], tuple(img.shape[1:3])))
+            n = img.shape[0] * (1 if layout is None else layout.dp)
+            draws = draw_augment(gen, n, tuple(img.shape[1:3]))
+            if layout is not None:
+                rows = layout.local_rows(n)
+                draws = {k: v[rows] for k, v in draws.items()}
+            batch = apply_augment(batch, draws)
         imgs = (batch["image"].float() / 127.5 - 1.0).to(torch.bfloat16)
         mark("augment")
         out = model(imgs)
@@ -175,10 +191,13 @@ def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig)
                                    cls_loss=tcfg.cls_loss)
         mark("loss")
         grads = torch.autograd.grad(total, opt.params)
+        if layout is not None:
+            layout.mean_over_dp_(grads)
         mark("backward")
         opt.step(grads)
         mark("optimizer")
-        return {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
+        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
+        return metrics if layout is None else layout.mean_metrics(metrics)
 
     return step
 
@@ -198,22 +217,48 @@ class TrainState:
 class Trainer:
     """Trains ``Yolact(mcfg, train=True)`` on ``device`` (the card unless
     the caller asks for the CPU) from Flax's initialisers seeded with
-    ``tcfg.seed``."""
+    ``tcfg.seed``.
+
+    With ``mesh`` (a ``parallel.Mesh`` this process has joined as one slot,
+    ``parallel.mesh.join`` / ``launch``) the trainer runs that slot on the
+    slot's device: the model sharded over the mesh and the step over the
+    slot's ``dp`` slice of each global batch
+    (``parallel.sharding.shard_train_step``), with the unsharded step's
+    answer.  Every slot reads the same data; ``save`` and ``save_state``
+    gather the sharded tensors on every slot and write from slot 0, which
+    alone logs."""
 
     def __init__(self, mcfg: ModelConfig | None = None, tcfg: TrainConfig | None = None,
-                 device=None):
+                 device=None, mesh=None):
         from tod_tpu_torch.models.yolact import Yolact
 
         self.mcfg = mcfg or ModelConfig()
         self.tcfg = tcfg or TrainConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            if not mesh.joined:
+                raise ValueError("Trainer(mesh=...) runs one slot of the mesh a process: join "
+                                 "it first (parallel.mesh.join, or parallel.mesh.launch)")
+            device = mesh.flat[mesh.rank]
         self.device = resolve_device(device)
         self.model = Yolact(self.mcfg, train=True)
         init_params(self.model, torch.Generator().manual_seed(self.tcfg.seed))
         self.model.to(self.device).train()
         self.anchors = torch.from_numpy(generate_anchors(self.mcfg)).to(self.device)
-        self.opt = AdamW(self.model.parameters(), self.tcfg)
         self.step = 0
-        self._step = make_train_step(self.model, self.anchors, self.opt, self.tcfg)
+        self.layout = None
+        from tod_tpu_torch.parallel.sharding import shard_chunk_step, shard_train_step
+
+        if mesh is None:
+            self.opt = AdamW(self.model.parameters(), self.tcfg)
+            self._step = make_train_step(self.model, self.anchors, self.opt, self.tcfg)
+        else:
+            if self.tcfg.batch_size % mesh.shape["dp"]:
+                raise ValueError(f"batch {self.tcfg.batch_size} not divisible by "
+                                 f"dp={mesh.shape['dp']}")
+            self._step, self.opt, self.layout = shard_train_step(
+                self.model, self.anchors, self.tcfg, mesh)
+        self._chunk_step = shard_chunk_step(self._step)
         self._eval_engines = None  # built by the first evaluate()
         self._best_eval = float("-inf")
 
@@ -221,9 +266,20 @@ class Trainer:
     def param_names(self) -> list[str]:
         return [name for name, _ in self.model.named_parameters()]
 
+    @property
+    def writes(self) -> bool:
+        """Whether this process logs and writes files: always without a
+        mesh, slot 0 over one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _local(self, batch: dict, axis: int = 0) -> dict:
+        """This slot's ``dp`` slice of a global batch (the batch itself
+        without a mesh)."""
+        return batch if self.layout is None else self.layout.local_batch(batch, axis)
+
     def train_step(self, batch: dict, mark=None) -> dict[str, torch.Tensor]:
-        """One step on a batch of tensors on the device."""
-        metrics = self._step(batch, self.step, mark)
+        """One step on a (global) batch of tensors on the device."""
+        metrics = self._step(self._local(batch), self.step, mark)
         self.step += 1
         return metrics
 
@@ -245,6 +301,9 @@ class Trainer:
         """
         last: dict = {}
         t0 = time.perf_counter()
+        if not self.writes:
+            # every slot still calls save / save_state: they gather first
+            log_fn, metrics_path = (lambda *_: None), None
         mfile = open(metrics_path, "a") if metrics_path else None
 
         def _record(kind: str, payload: dict) -> None:
@@ -265,13 +324,15 @@ class Trainer:
         try:
             while done < steps:
                 if chunk > 1:
-                    stacked = device_batch(next(staged), self.device)
+                    stacked = device_batch(self._local(next(staged), axis=1), self.device)
                     n = stacked["image"].shape[0]
-                    for i in range(n):
-                        metrics = self.train_step({k: v[i] for k, v in stacked.items()})
+                    metrics = self._chunk_step(stacked, self.step)
+                    self.step += n
                 else:
                     n = 1
-                    metrics = self.train_step(device_batch(data.next_batch(), self.device))
+                    metrics = self._step(device_batch(self._local(data.next_batch()),
+                                                      self.device), self.step)
+                    self.step += 1
                 done += n
                 if done % log_every < n or done >= steps:
                     last = {k: float(v) for k, v in metrics.items()}
@@ -321,7 +382,20 @@ class Trainer:
         unfolded tree (``core.weights.train_state_to_tree``)."""
         from tod_tpu_torch.core.weights import train_state_to_tree
 
-        return train_state_to_tree(self.model.state_dict())
+        return train_state_to_tree(self._full(self.model.state_dict()))
+
+    def _full(self, pieces: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Whole tensors from this slot's pieces, by state-dict name (over
+        a tp mesh a collective: every slot calls it)."""
+        if self.layout is None:
+            return pieces
+        return {name: self.layout.full(name, t) for name, t in pieces.items()}
+
+    def _pieces(self, whole: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This slot's pieces of whole tensors, by state-dict name."""
+        if self.layout is None:
+            return whole
+        return {name: self.layout.local(name, t) for name, t in whole.items()}
 
     def evaluate(self, n_scenes: int = 8, seed: int = 9999, plan: bool = False) -> dict:
         """The held-out metric sweep (``train/evaluate.py``) on the live
@@ -346,7 +420,9 @@ class Trainer:
         """The serving tree as an ``.npz`` (``train/checkpoint.save_tree``)."""
         from tod_tpu_torch.train.checkpoint import save_tree
 
-        save_tree(path, self.tree())
+        tree = self.tree()
+        if self.writes:
+            save_tree(path, tree)
 
     def load(self, path: str) -> None:
         """Warm-start from a serving tree (``--init-from``): parameters and
@@ -355,7 +431,7 @@ class Trainer:
         parameter that differs."""
         from tod_tpu_torch.core.weights import read_tree, train_state_from_tree
 
-        state = train_state_from_tree(read_tree(path))
+        state = self._pieces(train_state_from_tree(read_tree(path)))
         want = self.model.state_dict()
         if len(state) != len(want):
             raise ValueError(f"checkpoint/model config mismatch: {path} has {len(state)} "
@@ -369,13 +445,15 @@ class Trainer:
         self.model.load_state_dict(state)
 
     def state(self) -> TrainState:
+        """The full state, whole tensors (gathered over a tp mesh)."""
         names = self.param_names
-        sd = self.model.state_dict()
+        sd = self._full(self.model.state_dict())
         return TrainState(
             params={n: sd[n] for n in names},
             batch_stats={n: t for n, t in sd.items() if n not in set(names)},
-            opt_state={"count": self.opt.count, "mu": dict(zip(names, self.opt.mu)),
-                       "nu": dict(zip(names, self.opt.nu))},
+            opt_state={"count": self.opt.count,
+                       "mu": self._full(dict(zip(names, self.opt.mu))),
+                       "nu": self._full(dict(zip(names, self.opt.nu)))},
             step=self.step,
         )
 
@@ -385,7 +463,9 @@ class Trainer:
         the serving tree."""
         from tod_tpu_torch.train.checkpoint import save_state
 
-        save_state(path, dataclasses.asdict(self.state()))
+        state = dataclasses.asdict(self.state())
+        if self.writes:
+            save_state(path, state)
 
     def load_state(self, path: str) -> None:
         """Resume from :meth:`save_state`.  The optimizer must match this
@@ -399,11 +479,11 @@ class Trainer:
             raise ValueError(f"optimizer state mismatch: checkpoint has {got} leaves, this "
                              f"Trainer's optimizer has {self.opt.n_leaves} - was the optimizer "
                              f"recipe changed?")
-        self.model.load_state_dict({**saved["params"], **saved["batch_stats"]})
+        self.model.load_state_dict(self._pieces({**saved["params"], **saved["batch_stats"]}))
         names = self.param_names
         with torch.no_grad():
             for dst, key in ((self.opt.mu, "mu"), (self.opt.nu, "nu")):
-                for t, name in zip(dst, names):
-                    t.copy_(opt[key][name])
+                for t, piece in zip(dst, self._pieces({n: opt[key][n] for n in names}).values()):
+                    t.copy_(piece)
         self.opt.count = int(opt["count"])
         self.step = int(saved["step"])
