@@ -148,11 +148,25 @@ Phases, each printed as it ends:
    weights do not see its ball at 2.4 m, as ``tod_tpu``'s do not) and with
    a ball at 1.5 m, which it must reach, planning with the relaxation on
    the card, its first tick's plan against the CPU's within the device
-   planner's tolerances; and ``train.evaluate --sim`` on 4 scenes.
+   planner's tolerances; and ``train.evaluate --sim`` on 4 scenes;
+23. the last modules (M17): an ``Engine`` with ``ModelConfig.s2d_stem``
+   and ``depthwise_shifted`` over 8 frames at 320x240 through
+   ``serve_step_plan`` (K1, K4, K2, the relaxation and the walk), its f32
+   heads against the unflagged engine's on 4 frames and its first plan
+   against the CPU's flagged engine; the same flags under ``--int8``
+   (``qconv`` 68 times a frame beside the shifted float depthwise sites);
+   the app with ``--auth-token --streams 2`` asked through ``PathClient``
+   (``get_path``, ``get_stats``, ``get_path_stream(1)``), then the app on
+   the same port with ``--source png`` on a 24-bit BMP, the client
+   reconnecting by itself; ``entry.dryrun_multichip(1)`` on cuda:0 and ``(4)`` as gloo
+   ranks on the CPU; ``shard_inference`` and ``DPBatchServer`` on a (1, 2)
+   mesh whose slots are both cuda:0, against the unsharded forward; and
+   ``import_tflite`` on a FlatBuffer written here with ``struct`` (a conv,
+   a depthwise conv and an int8 FC), exactly the known weights.
 
 Then one JSON line with the kernels: each kernel's ``launches`` on the
 path it belongs to, and ``launches_by_path``, its count on each path of
-phases 21 and 22, each read just after that path's own reset.  As the last
+phases 21, 22 and 23, each read just after that path's own reset.  As the last
 line ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero.  Without CUDA, or without the package beside it, it exits
 non-zero before printing any result.
@@ -3214,6 +3228,363 @@ def serve_and_query(path):
         "equal to the served plan")
 
 
+# --- phase 23: a tflite FlatBuffer written with struct ----------------------
+
+def tflite_flatbuffer(np, ops) -> bytes:
+    """A tflite model of ``ops``, each ``(builtin code, kernel, bias)`` with
+    the kernel in tflite's layout (f32, or ``(int8 values, scales)``
+    quantized on axis 0), as TFLite's ``schema.fbs`` lays it out: one
+    subgraph whose operators read (input, kernel, bias).  Objects are laid
+    out parent first, so every offset points forward."""
+    import struct
+
+    buf = bytearray()
+
+    def align(n, extra=0):
+        while (len(buf) + extra) % n:
+            buf.append(0)
+
+    def table(fields):
+        """fields: slot -> ("scalar", fmt, value) or ("ref", writer)."""
+        n = max(fields) + 1 if fields else 0
+        layout, size = {}, 4
+        for slot in sorted(fields):
+            kind = fields[slot][0]
+            width = struct.calcsize("<" + fields[slot][1]) if kind == "scalar" else 4
+            size += -size % width
+            layout[slot] = size
+            size += width
+        align(2)
+        vt = len(buf)
+        buf.extend(struct.pack(f"<HH{n}H", 4 + 2 * n, size,
+                               *[layout.get(i, 0) for i in range(n)]))
+        align(8)
+        pos = len(buf)
+        buf.extend(b"\0" * size)
+        struct.pack_into("<i", buf, pos, pos - vt)
+        refs = []
+        for slot, (kind, *rest) in sorted(fields.items()):
+            if kind == "scalar":
+                struct.pack_into("<" + rest[0], buf, pos + layout[slot], rest[1])
+            else:
+                refs.append((pos + layout[slot], rest[0]))
+        for at, write in refs:
+            struct.pack_into("<I", buf, at, write() - at)
+        return pos
+
+    def vector(values, dtype):
+        def write():
+            arr = np.ascontiguousarray(values, dtype)
+            align(max(4, arr.dtype.itemsize), 4)
+            pos = len(buf)
+            buf.extend(struct.pack("<I", arr.size) + arr.tobytes())
+            return pos
+        return write
+
+    def tables(writers):
+        def write():
+            align(4)
+            pos = len(buf)
+            buf.extend(struct.pack("<I", len(writers)) + b"\0" * 4 * len(writers))
+            for i, w in enumerate(writers):
+                at = pos + 4 + 4 * i
+                struct.pack_into("<I", buf, at, w() - at)
+            return pos
+        return write
+
+    codes = sorted({code for code, _, _ in ops})
+    buffers = [lambda: table({})]  # buffer 0: empty, by convention
+    tensors = []
+
+    def tensor(shape, ttype, data=None, scales=None):
+        fields = {0: ("ref", vector(shape, "<i4")), 1: ("scalar", "b", ttype),
+                  2: ("scalar", "I", 0)}
+        if data is not None:
+            fields[2] = ("scalar", "I", len(buffers))
+            raw = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
+            buffers.append(lambda raw=raw: table({0: ("ref", vector(raw, "u1"))}))
+        if scales is not None:
+            fields[4] = ("ref", lambda s=scales: table({
+                2: ("ref", vector(s, "<f4")),
+                3: ("ref", vector(np.zeros(len(s)), "<i8")),
+                6: ("scalar", "i", 0)}))
+        tensors.append(lambda f=fields: table(f))
+        return len(tensors) - 1
+
+    operators = []
+    for code, kernel, bias in ops:
+        if isinstance(kernel, tuple):
+            values, scales = kernel
+            k = tensor(values.shape, 9, values.astype(np.int8), scales)
+        else:
+            k = tensor(kernel.shape, 0, kernel.astype("<f4"))
+        b = tensor(bias.shape, 0, bias.astype("<f4"))
+        x = tensor((1, 1), 0)
+        y = tensor((1, 1), 0)
+        operators.append(lambda c=codes.index(code), io=(x, k, b), y=y: table({
+            0: ("scalar", "I", c), 1: ("ref", vector(io, "<i4")),
+            2: ("ref", vector([y], "<i4"))}))
+    opcodes = [lambda c=c: table({0: ("scalar", "b", min(c, 127)), 2: ("scalar", "i", 1),
+                                  3: ("scalar", "i", c)}) for c in codes]
+    subgraph = lambda: table({0: ("ref", tables(tensors)), 1: ("ref", vector([], "<i4")),
+                              2: ("ref", vector([], "<i4")),
+                              3: ("ref", tables(operators))})  # noqa: E731
+    buf.extend(b"\0" * 4 + b"TFL3")
+    root = table({0: ("scalar", "I", 3), 1: ("ref", tables(opcodes)),
+                  2: ("ref", tables([subgraph])), 4: ("ref", tables(buffers))})
+    struct.pack_into("<I", buf, 0, root)
+    return bytes(buf)
+
+
+def write_bmp24(np, path, rgb) -> None:
+    """(H, W, 3) uint8 -> a 24-bit bottom-up BMP (BGR rows padded to 4 bytes)."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
+    header = (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+              + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
+    pathlib.Path(path).write_bytes(header + rows.tobytes())
+
+
+S2D_DW_TOL = 1e-4  # the flagged f32 heads against the unflagged, of the largest value
+TP_TOL = 1e-4  # the tp-split f32 forward against the unsharded one, of the largest value
+
+
+def m17_path(torch, np, state, root, paths):
+    """Phase 23, the last modules (M17) on the card: an ``Engine`` with
+    ``s2d_stem`` and ``depthwise_shifted`` through ``serve_step_plan`` (its
+    launches, its f32 heads against the unflagged engine's, its first plan
+    against the CPU's flagged engine), the same under ``--int8`` (the
+    shifted float depthwise beside ``qconv``); the app with
+    ``--auth-token`` and ``--streams 2`` asked through ``PathClient``, which
+    reconnects to the app restarted with ``--source png`` on a 24-bit BMP;
+    ``dryrun_multichip(1)`` on the card and ``(4)`` as gloo ranks;
+    ``shard_inference`` and ``DPBatchServer`` on a (1, 2) mesh of cuda:0;
+    ``import_tflite`` on a FlatBuffer written here.  Returns each path's
+    launches, read just after its own reset."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tod_tpu_torch.bench.configs import busy_ms
+    from tod_tpu_torch.core.config import CameraConfig, ModelConfig, PipelineConfig
+    from tod_tpu_torch.entry import dryrun_multichip
+    from tod_tpu_torch.models.conv import S2DConv, ShiftedConv
+    from tod_tpu_torch.models.qconv import QConv
+    from tod_tpu_torch.models.tflite_import import import_tflite
+    from tod_tpu_torch.models.yolact import Yolact
+    from tod_tpu_torch.ops.preprocess import pack_frame, preprocess_frame
+    from tod_tpu_torch.parallel import make_mesh, shard_inference
+    from tod_tpu_torch.parallel.serving import DPBatchServer
+    from tod_tpu_torch.runtime.engine import Engine
+    from tod_tpu_torch.runtime.frame_source import SyntheticSource
+    from tod_tpu_torch.serve.client import PathClient
+
+    dev = torch.device("cuda", 0)
+    by_path = {}
+    hw = (240, 320)
+    cam = CameraConfig(width=hw[1], height=hw[0])
+    flags = dict(s2d_stem=True, depthwise_shifted=True)
+    source = list(SyntheticSource(cam, seed=0, n_frames=N_FRAMES + 1).frames())
+    frames = [torch.from_numpy(pack_frame(f.rgb, f.depth)).pin_memory() for f in source]
+
+    def serve(cfg, name, want_sites):
+        eng = Engine(cfg, state, device="cuda")
+        sites = (sum(isinstance(m, (S2DConv, ShiftedConv)) for m in eng.model.modules())
+                 if not cfg.model.quantized else
+                 sum(m.shifted and m.branch == "float" for m in eng.model.modules()
+                     if isinstance(m, QConv)))
+        eng.serve_step_plan(frames[0])  # warm-up
+        reset(paths[name])
+        per_frame, n_valid = [], []
+        for packed in frames[1:]:
+            t = time.perf_counter()
+            buf = eng.serve_step_plan(packed).cpu().numpy()
+            per_frame.append(1e3 * (time.perf_counter() - t))
+            n_valid.append(check_plan(np, buf, cfg.planner.max_path_steps))
+        launches = read(paths[name])
+        by_path[name] = launches
+        log(f"  {name}: {N_FRAMES} frames at 320x240 ({cfg.model.dtype}), {sites} flagged "
+            f"sites, median {statistics.median(per_frame):.2f} ms/frame, plan n_valid "
+            f"{n_valid}, launches {launches}")
+        if sites != want_sites or any(n == 0 for n in launches.values()) or max(n_valid) == 0:
+            raise AssertionError(f"the {name} path fell short: {sites} sites, {launches}")
+        return eng, launches
+
+    # 1. the flagged float engine (bf16), then its f32 heads and plan
+    mcfg = ModelConfig(input_size=hw, **flags)
+    n_shifted = sum(isinstance(m, ShiftedConv) for m in Yolact(mcfg).modules())
+    flagged, _ = serve(PipelineConfig(camera=cam, model=mcfg), "s2d_dw", 1 + n_shifted)
+    plain = Engine(PipelineConfig(camera=cam, model=ModelConfig(input_size=hw)), state,
+                   device="cuda")
+    plain.serve_step_plan(frames[0])
+    busy = {"flagged": [], "unflagged": []}
+    for order in (("flagged", "unflagged"), ("unflagged", "flagged")) * 2:  # in turns
+        for name in order:
+            eng = flagged if name == "flagged" else plain
+            busy[name].append(busy_ms(eng.serve_step_plan, frames[1].to(dev), dev))
+    log(f"  serve_step_plan device busy ms a step at 320x240 bf16 (bench.configs.busy_ms: "
+        f"the union of 8 steps' activities under torch.profiler; 4 runs each in turns): "
+        f"flagged {[round(v, 4) for v in busy['flagged']]} (median "
+        f"{statistics.median(busy['flagged']):.4f}), unflagged "
+        f"{[round(v, 4) for v in busy['unflagged']]} (median "
+        f"{statistics.median(busy['unflagged']):.4f}); {nvidia_smi_line()}")
+    del flagged, plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = PipelineConfig(camera=cam, model=dataclasses.replace(mcfg, dtype="float32"))
+    plain32 = dataclasses.replace(f32, model=dataclasses.replace(f32.model, s2d_stem=False,
+                                                                 depthwise_shifted=False))
+    card = Engine(f32, state, device="cuda")
+    unflagged = Engine(plain32, state, device="cuda")
+    cpu = Engine(f32, state, device="cpu")
+    worst = 0.0
+    for f in source[:4]:
+        x = preprocess_frame(torch.from_numpy(f.rgb), hw, torch.float32).cuda()
+        with torch.inference_mode():
+            a, b = card.model(x), unflagged.model(x)
+        for field in ("loc", "conf", "coeff", "prototypes", "sem_logits"):
+            ga, gb = getattr(a, field), getattr(b, field)
+            worst = max(worst, ((ga - gb).abs().max() / gb.abs().max().clamp_min(1.0)).item())
+    plan_card = card.serve_step_plan(frames[1]).cpu().numpy()
+    plan_cpu = cpu.serve_step_plan(frames[1].clone()).numpy()
+    n_card, n_cpu = (check_plan(np, b, f32.planner.max_path_steps) for b in (plan_card, plan_cpu))
+    mags = (float(plan_card[1:1 + n_card, 0].sum()), float(plan_cpu[1:1 + n_cpu, 0].sum()))
+    log(f"  s2d_dw f32 (TF32 off), 4 frames: heads against the unflagged engine's within "
+        f"{worst:.3e} of the largest value (tol {S2D_DW_TOL}); first plan card n={n_card} "
+        f"magnitude {mags[0]:.4f}, CPU flagged engine n={n_cpu} magnitude {mags[1]:.4f} "
+        f"(n equal, magnitudes within 1e-2 relative)")
+    if worst > S2D_DW_TOL or n_card != n_cpu or abs(mags[0] - mags[1]) > 1e-2 * max(mags[1], 1):
+        raise AssertionError("the flagged engine strayed from the unflagged or the CPU's")
+    del card, unflagged, cpu
+
+    # 2. --int8 with the flags: the float-served depthwise sites shifted, qconv dense
+    qcfg = PipelineConfig(camera=cam, model=ModelConfig(input_size=hw, quantized=True,
+                                                        **flags))
+    _, launches = serve(qcfg, "s2d_dw_int8", n_shifted)
+    if launches["qconv"] != N_FRAMES * 68:
+        raise AssertionError(f"qconv launched {launches['qconv']} times, not 68 a frame")
+
+    # 3. the app with --auth-token --streams 2 through PathClient; then, on the
+    # same port, the app on a 24-bit BMP (--source png), the client reconnecting
+    token = "m17-token"
+    held = {}
+
+    def first(port):
+        c = PathClient(port=port, auth_token=token, retries=8, backoff=0.25, timeout=60)
+        held["client"], held["port"] = c, port
+        return {"GetPath": len(c.get_path().directions), "GetStat": c.get_stats(),
+                "GetPthN 1": len(c.get_path_stream(1).directions)}
+
+    metrics, ans, secs = run_app(root, ["--streams", "2", "--auth-token", token, "--frames",
+                                        "48", "--port", "0"], first)
+    stat = ans.pop("GetStat")
+    log(f"  app --auth-token --streams 2: rc 0 in {secs:.1f}s, n_ticks={metrics['n_ticks']}; "
+        f"PathClient {ans}, GetStat streams {len(stat['streams'])}, requests {stat['requests']}")
+    if len(stat["streams"]) != 2 or stat["requests"]["AuthTok"] != 1:
+        raise AssertionError("the app did not answer PathClient as it should")
+
+    def again(port):
+        c = held["client"]  # its connection died with the first app
+        return {"GetPath": len(c.get_path().directions), "GetStat": c.get_stats()}
+
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        bmp = os.path.join(tmp, "frame.bmp")
+        write_bmp24(np, bmp, source[0].rgb)
+        try:
+            metrics, ans, secs = run_app(root, ["--source", "png", "--image", bmp,
+                                                "--auth-token", token, "--frames", "120",
+                                                "--port", str(held["port"])], again)
+        finally:
+            held["client"].close()
+        stat = ans.pop("GetStat")
+        log(f"  the app restarted on port {held['port']} with --source png on a 24-bit BMP: "
+            f"rc 0 in {secs:.1f}s, n_frames {metrics['n_frames']}, plans_done "
+            f"{metrics['plans_done']}; PathClient reconnected by itself: {ans}, requests "
+            f"{stat['requests']}")
+        if stat["requests"]["AuthTok"] != 1 or stat["requests"]["GetPath"] != 1:
+            raise AssertionError("PathClient did not reconnect and authenticate again")
+        if metrics["n_frames"] != 120 or metrics["plans_done"] < 1:
+            raise AssertionError(f"the BMP source fell short: {metrics}")
+
+        # 4. the dry runs
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        for n in (1, 4):
+            t = time.time()
+            summary = dryrun_multichip(n, workdir=tmp)
+            log(f"  dryrun_multichip({n}) in {time.time() - t:.1f}s: slots {summary['slots']}")
+            want = "cuda:0" if n == 1 else "cpu"
+            if [s["device"] for s in summary["slots"]] != [want] * n:
+                raise AssertionError(f"dryrun_multichip({n}) ran on {summary['slots']}")
+
+    # 5. tp inference on a (1, 2) mesh whose slots are both cuda:0
+    mesh = make_mesh(2, tp=2, devices=[dev, dev])
+    model = Yolact(ModelConfig(input_size=hw, dtype="float32"))
+    model.load_state_dict(state)
+    model.to(dev).eval()
+
+    def fwd(p, imgs):
+        out = torch.func.functional_call(model, p, (imgs,))
+        return out.loc, out.prototypes, out.sem_logits
+
+    params = dict(model.state_dict())
+    x = torch.stack([preprocess_frame(torch.from_numpy(f.rgb), hw, torch.float32)[0]
+                     for f in source[:2]]).to(dev)
+    with torch.inference_mode():
+        got = shard_inference(fwd, mesh, model)(params)(params, x)
+        want = fwd(params, x)
+    err = max(((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+              for a, b in zip(got, want))
+    reset(paths["dp_tp"])
+    dets = DPBatchServer(PipelineConfig(camera=cam, model=ModelConfig(input_size=hw)), mesh,
+                         params=state).serve(np.stack([f.rgb for f in source[:2]]))
+    torch.cuda.synchronize()
+    by_path["dp_tp"] = read(paths["dp_tp"])
+    log(f"  shard_inference on a (1, 2) mesh of cuda:0, f32: within {err:.3e} of the largest "
+        f"value of the unsharded forward (tol {TP_TOL}); DPBatchServer on it: boxes "
+        f"{tuple(dets.boxes.shape)}, launches {by_path['dp_tp']}")
+    if err > TP_TOL or by_path["dp_tp"]["mask_assembly"] != 1:
+        raise AssertionError("tp inference strayed from the unsharded forward")
+
+    # 6. a tflite FlatBuffer written with struct: conv, depthwise conv, FC
+    rng = np.random.default_rng(23)
+    ops = [(3, rng.normal(size=(8, 3, 3, 3)).astype(np.float32),
+            rng.normal(size=8).astype(np.float32)),
+           (4, rng.normal(size=(1, 3, 3, 8)).astype(np.float32),
+            rng.normal(size=8).astype(np.float32)),
+           (9, (rng.integers(-127, 128, (5, 16)).astype(np.int8),
+                rng.uniform(0.01, 0.1, 5).astype(np.float32)),
+            rng.normal(size=5).astype(np.float32))]
+    tree = {"params/c1/kernel": np.zeros((3, 3, 3, 8), np.float32),
+            "params/c1/bias": np.zeros(8, np.float32),
+            "params/dw/kernel": np.zeros((3, 3, 1, 8), np.float32),
+            "params/dw/bias": np.zeros(8, np.float32),
+            "params/fc/kernel": np.zeros((16, 5), np.float32),
+            "params/fc/bias": np.zeros(5, np.float32)}
+    blob = tflite_flatbuffer(np, ops)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        path = os.path.join(tmp, "struct.tflite")
+        pathlib.Path(path).write_bytes(blob)
+        new, report = import_tflite(path, tree)
+    values, scales = ops[2][1]
+    # the FC's int8 values times its scales, dequantized in float64, stored as f32
+    fc = (values.astype(np.float64) * scales[:, None].astype(np.float64)).astype(np.float32)
+    known = {"params/c1/kernel": ops[0][1].transpose(1, 2, 3, 0),
+             "params/dw/kernel": ops[1][1].reshape(3, 3, 8)[:, :, None, :],
+             "params/fc/kernel": fc.T, "params/c1/bias": ops[0][2],
+             "params/dw/bias": ops[1][2], "params/fc/bias": ops[2][2]}
+    apart = max(float(np.abs(new[k] - v).max()) for k, v in known.items())
+    log(f"  import_tflite on a struct-written FlatBuffer ({len(blob)} bytes): mapped "
+        f"{report['mapped']}, unfilled {report['unfilled_params']}; weights apart from the "
+        f"known ones by {apart} (exact required)")
+    if len(report["mapped"]) != 3 or report["unfilled_params"] or apart != 0.0:
+        raise AssertionError("import_tflite did not read the known weights")
+    return by_path
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.time()
@@ -3255,6 +3626,7 @@ def main() -> int:
     int8 = {"qconv": qconv, **serving}
     fusion = {"bump": dilate_peaks, "connections": connection_planes}
     m16 = {"dp": {"mask_assembly": assemble_crop_masks}, "pipeline": serving}
+    m17 = {"s2d_dw": serving, "s2d_dw_int8": int8, "dp_tp": {"mask_assembly": assemble_crop_masks}}
     sim = {"oracle": fusion, "tracked": {"track": track_banks, **fusion},
            "model": {"mask_assembly": assemble_crop_masks, "relax": bellman_ford_grid, **fusion},
            "evaluate": {"mask_assembly": assemble_crop_masks, "cc_labels": root_labels,
@@ -3372,6 +3744,12 @@ def main() -> int:
     sim_launches = sim_path(torch, np, root, sim)
     log(f"  phase 22 took {time.time() - t:.1f}s")
 
+    log("== 23. M17: the s2d and shifted-depthwise engines, PathClient, a BMP source, the "
+        "dry runs, tp inference, the tflite reader")
+    t = time.time()
+    m17_launches = m17_path(torch, np, state, root, m17)
+    log(f"  phase 23 took {time.time() - t:.1f}s")
+
     # launches: each kernel's count on the path it belongs to (K4's on the
     # default serve path, K3's on the stream path with pallas_bump, the cc
     # kernel's on the semantic path)
@@ -3381,10 +3759,10 @@ def main() -> int:
     launches["track"] = tracked_launches["track"]
     launches["qconv"] = int8_launches["qconv"]
     launches["qconv_stem"] = stem_launches
-    # the paths of phases 21 and 22 keep their own counts, each read just
+    # the paths of phases 21, 22 and 23 keep their own counts, each read just
     # after its own reset, beside the kernel's count on its own path
-    by_path = {**m16_launches, **sim_launches}
-    log(f"  launches on the paths of phases 21 and 22: {by_path}")
+    by_path = {**m16_launches, **sim_launches, **m17_launches}
+    log(f"  launches on the paths of phases 21, 22 and 23: {by_path}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()

@@ -212,6 +212,67 @@ class TestInference:
         torch.testing.assert_close(out, ref, atol=1e-6 * max(ref.abs().max().item(), 1.0),
                                    rtol=0)
 
+    def test_shard_inference_tp_matches_unsharded(self, tiny_state, monkeypatch):
+        """A (2, 2) mesh: each row's conv sites split over its two slots and
+        joined on its first, against the unsharded forward, f32, within
+        1e-6 of the output's largest value; the model's classes restored
+        after; tp > 1 without the model refused."""
+        from tod_tpu_torch.models.conv import Conv
+        from tod_tpu_torch.models.yolact import Yolact
+        from tod_tpu_torch.parallel import make_mesh, shard_inference
+        from tod_tpu_torch.parallel import sharding
+
+        model = Yolact(tcfg.ModelConfig(**TINY))
+        model.load_state_dict(tiny_state)
+        model.eval()
+        classes = [type(m) for m in model.modules()]
+        pieces = []
+        split = sharding.TPServeSite.tp_forward
+
+        def counted(site, x):
+            pieces.append(id(site))
+            return split(site, x)
+
+        monkeypatch.setattr(sharding.TPServeSite, "tp_forward", counted)
+        sharding._TP_SERVE_CLASSES.clear()  # built again with the counted forward
+
+        def fwd(p, imgs):
+            out = torch.func.functional_call(model, p, (imgs,))
+            return out.loc, out.prototypes, out.sem_logits
+
+        mesh = make_mesh(4, tp=2, devices=["cpu"] * 4)
+        with pytest.raises(ValueError, match="needs the model"):
+            shard_inference(fwd, mesh)
+        run = shard_inference(fwd, mesh, model)(tiny_state)
+        x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (4, 48, 64, 3))
+                             .astype(np.float32))
+        with torch.no_grad():
+            out = run(tiny_state, x)
+            assert [type(m) for m in model.modules()] == classes
+            ref = fwd(tiny_state, x)
+        sharded = [m for m in model.modules() if isinstance(m, Conv) and m.weight.shape[0] % 2 == 0]
+        assert set(pieces) == {id(m) for m in sharded} and len(sharded) > 50
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=1e-6 * max(b.abs().max().item(), 1.0), rtol=0)
+        sharding._TP_SERVE_CLASSES.clear()
+
+    def test_dp_batch_server_tp_matches_dp(self, tiny_state):
+        """``DPBatchServer`` on a (2, 2) mesh against the (2, 1) mesh's:
+        boxes, scores and masks within 1e-6, the class map exact."""
+        from tod_tpu_torch.parallel import make_mesh
+        from tod_tpu_torch.parallel.serving import DPBatchServer
+
+        cfg = tcfg.PipelineConfig(camera=tcfg.CameraConfig(width=64, height=48),
+                                  model=tcfg.ModelConfig(**TINY))
+        rgb = np.random.default_rng(5).integers(0, 255, (4, 48, 64, 3), np.uint8)
+        got = DPBatchServer(cfg, make_mesh(4, tp=2, devices=CPU8[:4]), tiny_state).serve(rgb)
+        want = DPBatchServer(cfg, make_mesh(2, tp=1, devices=CPU8[:2]), tiny_state).serve(rgb)
+        for field in ("boxes", "scores", "masks"):
+            a, b = getattr(got, field), getattr(want, field)
+            torch.testing.assert_close(a, b, atol=1e-6 * max(b.abs().max().item(), 1.0),
+                                       rtol=0, msg=field)
+        assert torch.equal(got.class_map, want.class_map)
+
     def test_dp_batch_server_matches_unsharded(self, tiny_state):
         """dp-split preprocess, forward and detect against the same graph
         unsharded, f32: 1e-6 of the largest value, class map exact."""

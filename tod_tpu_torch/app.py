@@ -56,7 +56,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tod_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--source", choices=("synthetic", "png", "ring", "trace"), default="synthetic")
-    p.add_argument("--image", help="PNG path for --source png")
+    p.add_argument("--image", help="PNG or BMP path for --source png")
     p.add_argument("--trace", help="TODTRACE path for --source ring/trace")
     p.add_argument("--frames", type=int, default=None, help="stop after N frames")
     p.add_argument("--width", type=int, default=640)

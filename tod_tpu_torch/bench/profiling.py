@@ -192,6 +192,14 @@ def profile_forward(batch: int = 16, device=None, int8: bool = False) -> dict:
     return {"profile": name, **report, "device": device_info(dev)}
 
 
+def profile_flagship_forward(batch: int = 16, hw=(480, 640), device=None) -> dict:
+    """The JAX package's name for :func:`profile_forward`: the batch-``batch``
+    flagship forward at the VGA input (the only size it traces)."""
+    if tuple(hw) != (480, 640):
+        raise ValueError(f"profile_forward traces the 480x640 input, not {tuple(hw)}")
+    return profile_forward(batch, device)
+
+
 def profile_qvga_serve(plan: bool = False, device=None) -> dict:
     """Trace the 320x240 serve step: ``serve_step_packed`` (the frame to
     the scene's bytes), or with ``plan`` the frame+plan step

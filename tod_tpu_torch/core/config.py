@@ -60,6 +60,13 @@ class ModelConfig:
     # (models/qconv.py QATConv), the layout the static int8 serving path
     # quantizes to; the checkpoint then serves through --int8.
     qat: bool = False
+    # The depthwise sites of unit stride and at most 144 channels as shifted
+    # multiply-adds (ops/depthwise.py), in serving and training alike.
+    depthwise_shifted: bool = False
+    # The stride-2 3x3 stem as an exact 2x2 stride-1 conv on the 2x2
+    # space-to-depth input (ops/s2d.py); float models only, the int8 and QAT
+    # stems keep the plain conv.  The weights are the plain conv's either way.
+    s2d_stem: bool = False
     max_detections: int = 32
     score_threshold: float = 0.3
     nms_iou_threshold: float = 0.5

@@ -118,3 +118,16 @@ class Path:
             struct.unpack_from(">ff", data, off) for off in range(8, len(data), 8)
         ]
         return cls(created=float(secs), directions=directions)
+
+
+def empty_scene(height: int, width: int, max_balls: int = 100, device="cpu") -> Scene:
+    """A scene with nothing in it: zero heights, positions and ball slots,
+    and every connection -1 (off-grid)."""
+    import torch
+
+    return Scene(
+        height=torch.zeros((height, width), dtype=torch.float32, device=device),
+        pos=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
+        balls=torch.zeros((max_balls, 4), dtype=torch.float32, device=device),
+        connections=torch.full((height, width, 8), -1.0, dtype=torch.float32, device=device),
+    )

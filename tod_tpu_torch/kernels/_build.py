@@ -122,12 +122,17 @@ def build(names: Iterable[str]) -> dict[str, str]:
     return logs
 
 
+def host_library_path(src: pathlib.Path) -> pathlib.Path:
+    """The library a host C++ source builds into."""
+    return _hashed_path(src, GXX_FLAGS)
+
+
 def build_host(src: pathlib.Path) -> pathlib.Path:
     """Compile a host C++ source with g++ (``$CXX`` if set) into a shared
     library in ``BUILD_DIR`` unless it is there; returns its path, raises
     with g++'s output if the compile fails."""
     global _host_built
-    out = _hashed_path(src, GXX_FLAGS)
+    out = host_library_path(src)
     if not out.exists():
         log, ok = _finish(*_start([os.environ.get("CXX", "g++"), *GXX_FLAGS], src, out), out)
         if not ok:

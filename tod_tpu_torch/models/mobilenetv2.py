@@ -4,7 +4,13 @@ folded into each conv's weight and bias; with ``quantized`` each conv is a
 ``QConv`` that adds that bias as the folded BatchNorm does.  Built for
 training (a ``models.conv.Training`` mode), each ConvBN is the JAX training
 graph's: a conv with no bias, ``BatchNorm_0`` in f32 on batch statistics,
-ReLU6, then the compute dtype."""
+ReLU6, then the compute dtype.
+
+``dw_shifted`` and ``s2d_stem`` (``ModelConfig.depthwise_shifted`` and
+``s2d_stem``) route the sites as the JAX ``ConvBN`` does: the
+space-to-depth stem only at a float (not int8, not QAT) 3x3 stride-2 site
+that is not depthwise, the shifted depthwise only where ``shifted_wins``
+holds (in a quantized model, in ``QConv``'s float branch)."""
 
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from torch import nn
 from tod_tpu_torch.models.conv import Training
 from tod_tpu_torch.models.qconv import make_conv
 from tod_tpu_torch.models.resnet import TrainBatchNorm
+from tod_tpu_torch.ops.depthwise import shifted_wins
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -35,9 +42,17 @@ class ConvBN(nn.Module):
     """Conv + folded BN (+ ReLU6); in the training form conv, BN, ReLU6."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, act: bool = True, quantized=False):
+                 groups: int = 1, act: bool = True, quantized=False, dw_shifted: bool = False,
+                 s2d: bool = False):
         super().__init__()
-        self.Conv_0 = make_conv(quantized, cin, cout, kernel, stride, groups, bn=True)
+        depthwise = groups > 1 and groups == cin
+        quant = quantized.qat if isinstance(quantized, Training) else bool(quantized)
+        form = None
+        if s2d and not quant and not depthwise and kernel == 3 and stride == 2:
+            form = "s2d"
+        elif depthwise and dw_shifted and shifted_wins(cin, stride):
+            form = "shifted"
+        self.Conv_0 = make_conv(quantized, cin, cout, kernel, stride, groups, bn=True, form=form)
         self.act = act
         self.train_form = isinstance(quantized, Training)
         if self.train_form:
@@ -53,14 +68,15 @@ class ConvBN(nn.Module):
 
 class InvertedResidual(nn.Module):
     def __init__(self, inp: int, features: int, stride: int, expand: int,
-                 quantized=False):
+                 quantized=False, dw_shifted: bool = False):
         super().__init__()
         hidden = inp * expand
         q = quantized
         layers = []
         if expand != 1:
             layers.append(ConvBN(inp, hidden, kernel=1, quantized=q))
-        layers.append(ConvBN(hidden, hidden, kernel=3, stride=stride, groups=hidden, quantized=q))
+        layers.append(ConvBN(hidden, hidden, kernel=3, stride=stride, groups=hidden, quantized=q,
+                             dw_shifted=dw_shifted))
         layers.append(ConvBN(hidden, features, kernel=1, act=False, quantized=q))
         for i, layer in enumerate(layers):
             self.add_module(f"ConvBN_{i}", layer)
@@ -90,16 +106,18 @@ _TAPS = {2: "c3", 4: "c4", 6: "c5"}
 class MobileNetV2(nn.Module):
     """NCHW input -> (C3, C4, C5)."""
 
-    def __init__(self, width_mult: float = 1.0, quantized=False):
+    def __init__(self, width_mult: float = 1.0, quantized=False, dw_shifted: bool = False,
+                 s2d_stem: bool = False):
         super().__init__()
         cin = _make_divisible(32 * width_mult)
-        self.ConvBN_0 = ConvBN(3, cin, stride=2, quantized=quantized)
+        self.ConvBN_0 = ConvBN(3, cin, stride=2, quantized=quantized, s2d=s2d_stem)
         self.tap_after: dict[int, str] = {}
         idx = 0
         for stage, (t, c, n, s) in enumerate(_MNV2_CFG):
             feats = _make_divisible(c * width_mult)
             for i in range(n):
-                block = InvertedResidual(cin, feats, s if i == 0 else 1, t, quantized)
+                block = InvertedResidual(cin, feats, s if i == 0 else 1, t, quantized,
+                                         dw_shifted)
                 self.add_module(f"InvertedResidual_{idx}", block)
                 cin = feats
                 idx += 1

@@ -18,7 +18,8 @@ branch, as the JAX tree does:
   site and moved with the module;
 - **float** (``weight`` in bfloat16, a depthwise kernel that the
   preparation cast): a plain convolution of the values in the kernel's
-  type;
+  type (with ``shifted``, ``ModelConfig.depthwise_shifted``, the shifted
+  form of ``ops/depthwise.py``, as the JAX ``Conv8(shifted_depthwise=)``);
 - **qat** (``weight`` f32 and ``bias``, set by ``set_branch`` for a
   ``ModelConfig.qat`` model's calibration): the fake-quantized f32
   convolution of the JAX ``Conv8(qat=True)`` (a depthwise one in float),
@@ -45,7 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tod_tpu_torch.kernels.qconv import pack_kernel, qconv
-from tod_tpu_torch.models.conv import Conv, TrainConv, Training, same_pads
+from tod_tpu_torch.models.conv import (Conv, S2DConv, ShiftedConv, TrainConv, TrainS2DConv,
+                                       Training, TrainShiftedConv, same_pads)
+from tod_tpu_torch.ops.depthwise import depthwise_conv_shifted
 from tod_tpu_torch.ops.ieee import clip, rdiv
 
 BRANCHES = ("dynamic", "static", "float", "qat")
@@ -104,9 +107,10 @@ class QConv(nn.Module):
     ``set_branch`` changes it."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
-                 bn: bool = False):
+                 bn: bool = False, shifted: bool = False):
         super().__init__()
         self.k, self.stride, self.groups, self.bn = k, stride, groups, bn
+        self.shifted = shifted
         self.shape = (cout, cin // groups, k, k)
         self.weight = nn.Parameter(torch.empty(self.shape))
         self.bias = nn.Parameter(torch.empty(cout))
@@ -150,8 +154,13 @@ class QConv(nn.Module):
         """The conv over the values rounded to the kernel's type, summed in
         f32, plus the bias in f32, rounded once to the compute type: the
         compiled XLA graph runs a bf16 conv in f32 and keeps that sum, unrounded,
-        through the add that follows."""
+        through the add that follows.  The shifted form rounds its f32 sum to
+        the kernel's type first, as the JAX ``depthwise_conv_shifted``
+        returns it, then adds the bias in f32."""
         w = self.weight
+        if self.shifted:
+            y = depthwise_conv_shifted(x.to(w.dtype), w, self.stride)
+            return (y.float() + self.bias.view(1, -1, 1, 1)).to(x.dtype)
         xw = self._pad(x.to(w.dtype).float())
         y = F.conv2d(xw, w.float(), None, self.stride, 0, 1, self.groups)
         return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
@@ -210,19 +219,27 @@ class QATConv(TrainConv):
         return y.to(self.dtype)
 
 
+FORMS = {None: (Conv, TrainConv), "s2d": (S2DConv, TrainS2DConv),
+         "shifted": (ShiftedConv, TrainShiftedConv)}
+
+
 def make_conv(mode, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
-              bn: bool = False) -> nn.Module:
+              bn: bool = False, form: str | None = None) -> nn.Module:
     """The conv module of a site by the model's ``mode``: a ``Training``
     builds the training graph's site (``QATConv`` with ``qat``, else
     ``TrainConv``; no bias at a ConvBN site); a true ``mode`` (a quantized
     model) ``QConv``; else ``Conv`` (whose folded BatchNorm is its plain
-    bias)."""
+    bias).  ``form`` ("s2d" or "shifted", from ``models/mobilenetv2.py``)
+    picks the float sites' other form; a QAT site ignores it, and a
+    ``QConv`` takes only "shifted", in its float branch, as the JAX
+    ``Conv8`` does."""
+    serve_cls, train_cls = FORMS[form]
     if isinstance(mode, Training):
-        cls = QATConv if mode.qat else TrainConv
+        cls = QATConv if mode.qat else train_cls
         return cls(cin, cout, k, stride, groups, bias=not bn, dtype=mode.dtype)
     if mode:
-        return QConv(cin, cout, k, stride, groups, bn)
-    return Conv(cin, cout, k, stride, groups)
+        return QConv(cin, cout, k, stride, groups, bn, shifted=form == "shifted")
+    return serve_cls(cin, cout, k, stride, groups)
 
 
 def conv_sites(model: nn.Module) -> dict[str, QConv]:

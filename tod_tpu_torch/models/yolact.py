@@ -61,7 +61,7 @@ class Yolact(nn.Module):
         q = Training(getattr(torch, cfg.dtype), cfg.qat) if train else cfg.quantized
         if cfg.backbone == "mobilenetv2":
             self.backbone_name = "MobileNetV2_0"
-            backbone = MobileNetV2(cfg.width_mult, q)
+            backbone = MobileNetV2(cfg.width_mult, q, cfg.depthwise_shifted, cfg.s2d_stem)
         elif cfg.backbone.startswith("resnet"):
             self.backbone_name = "ResNet_0"
             backbone = ResNet(cfg.backbone, q)

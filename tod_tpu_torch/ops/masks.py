@@ -37,6 +37,11 @@ def crop_masks(masks: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, masks, torch.zeros((), dtype=masks.dtype, device=masks.device))
 
 
+def threshold_masks(masks: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """Binary masks, 1 where a mask is above ``threshold``, as uint8."""
+    return (masks > threshold).to(torch.uint8)
+
+
 def masks_to_class_map(masks, classes, valid, out_hw: tuple[int, int], threshold=0.5):
     """Instance masks (N, Hm, Wm) -> (class_map uint8 (H, W), id_map int32
     (H, W), -1 where none).  The lowest slot covering a pixel wins."""

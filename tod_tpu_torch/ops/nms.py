@@ -43,3 +43,30 @@ def fast_nms(
         idx.reshape(-1)[order],
         top_scores > score_threshold,
     )
+
+
+def greedy_nms_reference(boxes, scores, iou_threshold: float) -> list[int]:
+    """Sequential greedy NMS in float64 numpy, the oracle that Fast-NMS is
+    tested against: ``boxes`` (A, 4) ``(y1, x1, y2, x2)`` and ``scores``
+    (A,) of one class, already thresholded -> the kept indices in
+    descending-score order."""
+    import numpy as np
+
+    boxes = np.asarray(boxes, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    order = np.argsort(-scores)
+    kept = []
+    while order.size:
+        i = order[0]
+        kept.append(int(i))
+        rest = order[1:]
+        y1 = np.maximum(boxes[i, 0], boxes[rest, 0])
+        x1 = np.maximum(boxes[i, 1], boxes[rest, 1])
+        y2 = np.minimum(boxes[i, 2], boxes[rest, 2])
+        x2 = np.minimum(boxes[i, 3], boxes[rest, 3])
+        inter = np.maximum(y2 - y1, 0) * np.maximum(x2 - x1, 0)
+        area_i = (boxes[i, 2] - boxes[i, 0]) * (boxes[i, 3] - boxes[i, 1])
+        area_r = (boxes[rest, 2] - boxes[rest, 0]) * (boxes[rest, 3] - boxes[rest, 1])
+        iou = inter / np.maximum(area_i + area_r - inter, 1e-12)
+        order = rest[iou <= iou_threshold]
+    return kept

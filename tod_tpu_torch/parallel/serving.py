@@ -5,10 +5,11 @@ Raw uint8 frames in, batched ``Detections`` out: each ``dp`` row of the mesh
 keeps a replica of the weights on its device and runs its slice of the
 batch through ``resize_triangle`` -> ``normalize`` -> the YOLACT forward ->
 ``detect_batch`` (the mask assembly kernel K1, one launch a slice).  The
-forward needs no collective (pure data parallelism), and the host only
-dispatches: each slice goes from pinned memory straight to its own device
-without waiting, never through the first device, and the outputs are
-joined in batch order on the first device.
+host only dispatches: each slice goes from pinned memory straight to its
+own device without waiting, never through the first device, and the
+outputs are joined in batch order on the first device.  With ``tp > 1``
+each row's conv sites split their output channels over the row's devices
+(``parallel/sharding.py tp_sharded``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch.profiler import record_function
 from tod_tpu_torch.core.config import PipelineConfig
 from tod_tpu_torch.core.types import Detections
 from tod_tpu_torch.parallel.mesh import Mesh
-from tod_tpu_torch.parallel.sharding import dp_devices, gather_tree, split_batch
+from tod_tpu_torch.parallel.sharding import dp_devices, gather_tree, split_batch, tp_sharded
 
 
 class DPBatchServer:
@@ -41,6 +42,7 @@ class DPBatchServer:
         self.cfg = cfg
         self.mesh = mesh
         self.devices = dp_devices(mesh)
+        self.rows = [list(row) for row in mesh.devices]
         self.cam_hw = (cfg.camera.height, cfg.camera.width)
         # one replica a distinct device: rows that share a device share it
         self.replicas: dict[torch.device, tuple] = {}
@@ -53,19 +55,22 @@ class DPBatchServer:
     def dp(self) -> int:
         return self.mesh.shape["dp"]
 
-    def _serve_slice(self, rgb: torch.Tensor) -> Detections:
+    def _serve_slice(self, rgb: torch.Tensor, row: list[torch.device]) -> Detections:
         from tod_tpu_torch.models.yolact import detect_batch
         from tod_tpu_torch.ops.preprocess import normalize, resize_triangle
 
         model, dtype, anchors = self.replicas[rgb.device]
         mcfg = self.cfg.model
         x = normalize(resize_triangle(rgb, mcfg.input_size), dtype)
-        return detect_batch(model(x), mcfg, anchors, out_hw=self.cam_hw)
+        with tp_sharded(model, row):
+            out = model(x)
+        return detect_batch(out, mcfg, anchors, out_hw=self.cam_hw)
 
     def serve(self, rgb_batch) -> Detections:
         """Dispatch one dp-split batch; returns the device-resident
         ``Detections`` (nothing is read back)."""
         rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, np.uint8))
         with torch.inference_mode(), record_function("stage/dp_serve"):
-            outs = [self._serve_slice(piece) for piece in split_batch(rgb, self.devices)]
+            outs = [self._serve_slice(piece, row)
+                    for piece, row in zip(split_batch(rgb, self.devices), self.rows)]
             return gather_tree(outs, self.devices[0])

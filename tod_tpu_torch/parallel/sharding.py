@@ -37,10 +37,18 @@ so that the answer stays the unsharded step's:
 - the AdamW moments are sharded like their parameters, and
   ``clip_by_global_norm``'s norm sums each sharded leaf's squares over
   ``tp`` and each replicated leaf's once.
+
+Inference runs in one process, as the port's other serving paths do:
+each ``dp`` row of the mesh serves its slice of the batch, and within a
+row each serving conv site that the rule shards (``TPServeSite``) computes
+its output channels' pieces on the row's ``tp`` devices and joins them on
+the row's first device before the next layer; the rest of the graph runs
+there, replicated.  An int8 model's ``QConv`` sites stay replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Mapping
@@ -385,19 +393,80 @@ def dp_devices(mesh: Mesh) -> list[torch.device]:
     return list(mesh.devices[:, 0])
 
 
-def shard_inference(fn: Callable, mesh: Mesh):
+class TPServeSite:
+    """Mixed into a serving conv site (``models/conv.py``'s ``Conv`` and
+    its forms) whose output channels are split over ``tp_devices``, the
+    ``tp`` devices of a ``dp`` row: each device computes its slice of the
+    output channels from the whole input (a depthwise site from its slice
+    of the input's channels), with its slice of the weight and the bias
+    copied there, and the slices are joined on the input's device."""
+
+    def tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        devices = self.tp_devices
+        n = self.weight.shape[0] // len(devices)
+        depthwise = self.groups > 1
+        parts = []
+        for j, dev in enumerate(devices):
+            w = upload(self.weight.narrow(0, j * n, n), dev)
+            b = upload(self.bias.narrow(0, j * n, n), dev)
+            xj = upload(x.narrow(1, j * n, n) if depthwise else x, dev)
+            parts.append(self.conv(xj, w, b, n if depthwise else 1))
+        return torch.cat([upload(p, x.device) for p in parts], dim=1)
+
+
+def _tp_serve_class(cls):
+    return _TP_SERVE_CLASSES.setdefault(
+        cls, type(f"TPServe{cls.__name__}", (TPServeSite, cls), {"forward": TPServeSite.tp_forward}))
+
+
+_TP_SERVE_CLASSES: dict = {}
+
+
+@contextlib.contextmanager
+def tp_sharded(model: torch.nn.Module, devices: list[torch.device]):
+    """While the block runs, every serving conv site of ``model`` whose
+    output channels ``len(devices)`` divides (the layout rule) computes its
+    slices on ``devices`` (``TPServeSite``); the classes are restored after.
+    One device leaves the model as it is."""
+    from tod_tpu_torch.models.conv import Conv, TrainConv
+
+    swapped = []
+    try:
+        if len(devices) > 1:
+            for m in model.modules():
+                if (isinstance(m, Conv) and not isinstance(m, TrainConv)
+                        and _leaf_spec(m.weight.shape, len(devices))):
+                    swapped.append((m, type(m)))
+                    m.__class__ = _tp_serve_class(type(m))
+                    m.tp_devices = list(devices)
+        yield
+    finally:
+        for m, cls in swapped:
+            m.__class__ = cls
+            del m.tp_devices
+
+
+def shard_inference(fn: Callable, mesh: Mesh, model: torch.nn.Module | None = None):
     """``jit_with(params) -> run``, the JAX package's call shape;
     ``run(params, batch)`` applies ``fn(params, batch)`` to each ``dp``
     row's piece of ``batch`` on that row's device, with a replica of
     ``params`` there copied at each call (none on a row whose device holds
     ``params``), and joins the outputs in batch order on the first device.
+    With ``tp > 1``, ``model`` is the module whose conv sites ``fn`` runs
+    (``torch.func.functional_call(model, params, ...)``): within each row
+    they are split over the row's ``tp`` devices (:func:`tp_sharded`).
     Every ``params`` gets the same ``run``."""
     devices = dp_devices(mesh)
+    rows = [list(row) for row in mesh.devices]
+    if mesh.shape["tp"] > 1 and model is None:
+        raise ValueError("shard_inference over tp > 1 needs the model whose conv sites fn runs")
 
     def run(p: Mapping[str, torch.Tensor], batch: torch.Tensor):
         pieces = split_batch(batch, devices)
-        outs = [fn({k: upload(v, dev) for k, v in p.items()}, piece)
-                for piece, dev in zip(pieces, devices)]
+        outs = []
+        for piece, dev, row in zip(pieces, devices, rows):
+            with tp_sharded(model, row):
+                outs.append(fn({k: upload(v, dev) for k, v in p.items()}, piece))
         return gather_tree(outs, devices[0])
 
     return lambda params: run

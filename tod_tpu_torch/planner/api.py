@@ -134,6 +134,30 @@ def plan_from_height(height, balls, cfg: PlannerConfig | None = None) -> Path:
     return Path(created=time.time(), directions=directions)
 
 
+def dispatch_plan_device(height, balls, cfg: PlannerConfig | None = None,
+                         start_yx: tuple[int, int] | None = None) -> torch.Tensor:
+    """Enqueue the device plan (``planner/relax.py plan_on_device``: seeds,
+    the relaxation, the path walk) on the height map's device, without
+    waiting -> the (max_steps + 1, 2) f32 plan buffer there (row 0 the
+    header with n_valid)."""
+    from tod_tpu_torch.planner.relax import plan_on_device
+
+    cfg = cfg or PlannerConfig()
+    h, w = height.shape
+    start = start_yx or start_node_yx((h, w), offset=cfg.start_offset)
+    buf, _ = plan_on_device(height, balls, start, max_seeds=cfg.max_seed_balls,
+                            min_pixels=cfg.min_ball_pixels, max_steps=cfg.max_path_steps,
+                            max_iters=cfg.tpu_max_iters, signed=cfg.signed_turns)
+    return buf
+
+
+def plan_directions_device(height, balls, cfg: PlannerConfig | None = None,
+                           start_yx: tuple[int, int] | None = None) -> Path:
+    """Plan on the device and read back only the plan buffer (a few KB,
+    where the height map is ~1 MB) -> the Path."""
+    return materialize_path(dispatch_plan_device(height, balls, cfg, start_yx))
+
+
 _warned_truncated = False
 
 

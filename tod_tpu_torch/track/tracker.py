@@ -170,6 +170,66 @@ def track_update(tracks: torch.Tensor, balls: torch.Tensor, cfg: TrackerConfig) 
     return out[0] if single else out
 
 
+def track_update_oracle(tracks, balls, cfg: TrackerConfig):
+    """Sequential numpy mirror of :func:`track_update` for one ``(K, 10)``
+    bank, the oracle of the tests -> the new bank (f32 numpy)."""
+    import numpy as np
+
+    t = np.array(tracks, np.float32)
+    balls = np.asarray(balls, np.float32)
+    q = cfg.accel_var
+    # predict
+    t[:, X] += t[:, VX]
+    t[:, Y] += t[:, VY]
+    p_pos = t[:, P_POS] + 2 * t[:, P_PV] + t[:, P_VEL] + q * 0.25
+    p_pv = t[:, P_PV] + t[:, P_VEL] + q * 0.5
+    t[:, P_VEL] += q
+    t[:, P_POS], t[:, P_PV] = p_pos, p_pv
+    # associate: the global minimum cost, pair by pair
+    meas_valid = balls[:, 2] > cfg.min_pixels
+    k, m = t.shape[0], balls.shape[0]
+    d2 = ((t[:, None, [X, Y]] - balls[None, :, :2]) ** 2).sum(-1)
+    cost = np.where((t[:, ACTIVE] > 0)[:, None] & meas_valid[None, :] & (d2 <= cfg.gate ** 2),
+                    d2, np.inf)
+    assign = np.full(k, -1, np.int32)
+    for _ in range(min(k, m)):
+        if not np.isfinite(cost).any():
+            break
+        ti, mi = np.unravel_index(np.argmin(cost), cost.shape)
+        assign[ti] = mi
+        cost[ti, :] = np.inf
+        cost[:, mi] = np.inf
+    # Kalman update and lifecycle
+    taken = set()
+    for i in range(k):
+        if assign[i] >= 0:
+            taken.add(int(assign[i]))
+            z = balls[assign[i], :2]
+            s = t[i, P_POS] + cfg.meas_var
+            k1, k2 = t[i, P_POS] / s, t[i, P_PV] / s
+            r = z - t[i, [X, Y]]
+            t[i, X] += k1 * r[0]
+            t[i, Y] += k1 * r[1]
+            t[i, VX] += k2 * r[0]
+            t[i, VY] += k2 * r[1]
+            p_old = t[i, P_PV]
+            t[i, P_POS] *= 1 - k1
+            t[i, P_PV] *= 1 - k1
+            t[i, P_VEL] -= k2 * p_old
+            t[i, HITS] += 1
+            t[i, MISSES] = 0
+        elif t[i, ACTIVE] > 0:
+            t[i, MISSES] += 1
+            if t[i, MISSES] > cfg.max_misses:
+                t[i, HITS] = t[i, MISSES] = t[i, ACTIVE] = 0
+    # births
+    free_meas = [j for j in range(m) if meas_valid[j] and j not in taken]
+    free_slots = [i for i in range(k) if t[i, ACTIVE] <= 0]
+    for i, j in zip(free_slots, free_meas):
+        t[i] = [balls[j, 0], balls[j, 1], 0, 0, cfg.meas_var, 0, cfg.vel0_var, 1, 0, 1]
+    return t
+
+
 def tracks_to_balls(tracks: torch.Tensor, cfg: TrackerConfig, max_balls: int) -> torch.Tensor:
     """The confirmed tracks in the planner's ball-slot format -> ``(max_balls,
     4)`` (or ``(N, max_balls, 4)``): slot i holds track i's position and,

@@ -1,12 +1,19 @@
 """Image files without PIL (counterpart of the JAX package's
 ``utils/image_io.py``, which goes through PIL; the card's machine has none).
 
-- ``load_image``: a PNG decoder (stdlib ``zlib`` and numpy) to (H, W, 3)
-  uint8, by the rules of PIL's ``Image.open(path).convert("RGB")``: alpha
-  dropped, grey replicated, palette indices looked up.  It reads 8-bit grey,
-  RGB, grey+alpha and RGBA, and palette images at 1, 2, 4 and 8 bits, plain
-  or Adam7-interlaced, with all five row filters.  Other PNGs (16 bits a
-  sample, or grey below 8 bits) and other formats raise ``ValueError``.
+- ``load_image``: a PNG or BMP file to (H, W, 3) uint8, by the rules of
+  PIL's ``Image.open(path).convert("RGB")``.
+  - PNG (stdlib ``zlib`` and numpy): every bit depth and colour type the
+    format allows, plain or Adam7-interlaced, with all five row filters.
+    Alpha is dropped, grey replicated, palette indices looked up; grey
+    below 8 bits is scaled to 0-255 (x255, x85, x17 at 1, 2, 4 bits); a
+    16-bit sample keeps its high byte, except 16-bit grey, which PIL opens
+    as "I;16" and clips to 255.
+  - BMP (``struct`` and numpy): uncompressed 1-, 4-, 8-, 16-, 24- and
+    32-bit files, bottom-up or top-down rows, palettes (BGRX, or BGR under
+    the 12-byte OS/2 header) and the ``BI_BITFIELDS`` masks PIL reads.
+  Anything else (RLE-compressed BMP, JPEG, GIF, ...) raises ``ValueError``
+  naming it.
 - ``save_rgb``: an RGB PNG.
 - ``save_gray_bmp`` / ``dump_scene_debug``: the reference's debug dumps,
   byte for byte the files PIL writes for an 8-bit "L" image: a 256-entry
@@ -92,20 +99,39 @@ def _unfilter(raw: bytes, rows: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 
 def _samples(rows: np.ndarray, width: int, bits: int, channels: int) -> np.ndarray:
-    """Unfiltered rows -> (rows, width, channels) uint8 samples."""
+    """Unfiltered rows -> (rows, width, channels) samples: uint16 at 16
+    bits (big-endian in the file), else uint8."""
     n = rows.shape[0]
+    if bits == 16:
+        pairs = rows[:, : width * channels * 2].reshape(n, width, channels, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
     if bits == 8:
         return rows[:, : width * channels].reshape(n, width, channels)
-    # sub-byte palette indices, the most significant bits first
+    # sub-byte samples (grey or palette indices), the most significant bits first
     shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
     vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
     return vals.reshape(n, -1)[:, :width, None].astype(np.uint8)
 
 
+# the bit depths the PNG format allows for each colour type
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _to_8bit(img: np.ndarray, bits: int, ctype: int) -> np.ndarray:
+    """Samples -> 0-255 as PIL's modes for the depth map them: grey below 8
+    bits scaled up, 16-bit grey ("I;16") clipped, other 16-bit samples
+    their high byte."""
+    if bits == 16:
+        return np.minimum(img, 255).astype(np.uint8) if ctype == 0 else (img >> 8).astype(np.uint8)
+    if ctype == 0 and bits < 8:
+        return img * np.uint8(255 // ((1 << bits) - 1))
+    return img
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8, as PIL's ``convert("RGB")``."""
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError("not a PNG file (only PNG is read)")
+        raise ValueError("not a PNG file")
     header, palette, idat = None, None, []
     for ctype, payload in _chunks(data):
         if ctype == b"IHDR":
@@ -117,14 +143,13 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
     width, height, bits, ctype, compression, filter_method, interlace = header
-    supported = (bits == 8 and ctype in CHANNELS) or (ctype == 3 and bits in (1, 2, 4))
-    if not supported or compression or filter_method or interlace not in (0, 1):
-        raise ValueError(f"unsupported PNG: bit depth {bits}, colour type {ctype} "
-                         f"(8-bit grey, RGB, grey+alpha, RGBA and 1-8 bit palette are read)")
+    if bits not in PNG_DEPTHS.get(ctype, ()) or compression or filter_method or interlace > 1:
+        raise ValueError(f"unsupported PNG: bit depth {bits}, colour type {ctype}, compression "
+                         f"{compression}, filter {filter_method}, interlace {interlace}")
     channels = CHANNELS[ctype]
     bpp = max(1, bits * channels // 8)
     raw = zlib.decompress(b"".join(idat))
-    img = np.zeros((height, width, channels), np.uint8)
+    img = np.zeros((height, width, channels), np.uint16 if bits == 16 else np.uint8)
     passes = ADAM7 if interlace else ((0, 0, 1, 1),)
     pos = 0
     for x0, y0, dx, dy in passes:
@@ -141,14 +166,99 @@ def decode_png(data: bytes) -> np.ndarray:
         table = np.zeros((256, 3), np.uint8)
         table[: len(palette)] = palette[:256]
         return table[img[..., 0]]
+    img = _to_8bit(img, bits, ctype)
     if ctype in (0, 4):  # grey (+ alpha): replicate the grey
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
 
 
+# BI_BITFIELDS masks that PIL reads -> the bit offset and width of R, G, B
+_BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): ((16, 8), (8, 8), (0, 8)),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): ((24, 8), (16, 8), (8, 8)),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): ((24, 8), (8, 8), (0, 8)),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): ((24, 8), (16, 8), (8, 8)),
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): ((0, 8), (8, 8), (16, 8)),
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): ((16, 8), (8, 8), (0, 8)),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): ((24, 8), (8, 8), (0, 8)),
+    (32, (0x0, 0x0, 0x0, 0x0)): ((16, 8), (8, 8), (0, 8)),
+    (24, (0xFF0000, 0xFF00, 0xFF)): ((16, 8), (8, 8), (0, 8)),
+    (16, (0xF800, 0x7E0, 0x1F)): ((11, 5), (5, 6), (0, 5)),
+    (16, (0x7C00, 0x3E0, 0x1F)): ((10, 5), (5, 5), (0, 5)),
+}
+_BMP_COMPRESSIONS = {1: "RLE8", 2: "RLE4", 4: "JPEG", 5: "PNG"}
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> (H, W, 3) uint8, as PIL's ``convert("RGB")``."""
+    if not data.startswith(b"BM") or len(data) < 18:
+        raise ValueError("not a BMP file")
+    offset, header_size = struct.unpack_from("<II", data, 10)
+    if header_size == 12:  # OS/2 1.x: u16 sizes, BGR palette, always bottom-up
+        width, height, _, bits = struct.unpack_from("<HHHH", data, 18)
+        compression, colors, entry, top_down = 0, 0, 3, False
+    elif header_size in (40, 52, 56, 64, 108, 124):
+        width, height, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+        colors = struct.unpack_from("<I", data, 46)[0]
+        entry, top_down = 4, height < 0
+        height = abs(height)
+    else:
+        raise ValueError(f"unsupported BMP header size {header_size}")
+    if compression in _BMP_COMPRESSIONS:
+        raise ValueError(f"unsupported BMP compression {_BMP_COMPRESSIONS[compression]}")
+    if compression not in (0, 3) or bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"unsupported BMP: bit depth {bits}, compression {compression}")
+    colors = colors or (1 << bits)
+    if offset == 14 + header_size and bits <= 8:
+        offset += 4 * colors  # an offset that points at the palette
+    if compression == 3:
+        # after a 40-byte header or inside a longer one, at the same place;
+        # an alpha mask from the 56-byte header on
+        n_masks = 4 if header_size >= 56 else 3
+        masks = struct.unpack_from(f"<{n_masks}I", data, 14 + 40) + (0,) * (4 - n_masks)
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_MASKS:
+            raise ValueError(f"unsupported BMP bitfields layout {bits} bits, masks "
+                             f"{[hex(m) for m in masks]}")
+        fields = _BMP_MASKS[key]
+    else:
+        fields = {16: ((10, 5), (5, 5), (0, 5)), 24: ((16, 8), (8, 8), (0, 8)),
+                  32: ((16, 8), (8, 8), (0, 8))}.get(bits)
+    stride = ((width * bits + 31) >> 3) & ~3
+    raw = np.frombuffer(data, np.uint8, stride * height, offset).reshape(height, stride)
+    if not top_down:
+        raw = raw[::-1]
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"unsupported BMP palette size {colors}")
+        pal = np.frombuffer(data, np.uint8, entry * colors, 14 + header_size)
+        pal = pal.reshape(colors, entry)
+        table = np.zeros((256, 3), np.uint8)
+        table[: min(colors, 256)] = pal[:256, 2::-1]  # BGR(X) -> RGB
+        return table[_samples(raw, width, bits, 1)[..., 0]]
+    nbytes = bits // 8
+    px = raw[:, : width * nbytes].reshape(height, width, nbytes).astype(np.uint32)
+    pixel = sum(px[..., i] << (8 * i) for i in range(nbytes))  # little-endian
+    out = np.empty((height, width, 3), np.uint8)
+    for c, (shift, size) in enumerate(fields):
+        v = (pixel >> shift) & ((1 << size) - 1)
+        out[..., c] = v if size == 8 else v * 255 // ((1 << size) - 1)
+    return out
+
+
 def load_image(path) -> np.ndarray:
-    """PNG file -> (H, W, 3) uint8."""
-    return decode_png(pathlib.Path(path).read_bytes())
+    """PNG or BMP file -> (H, W, 3) uint8; another format raises
+    ``ValueError`` naming it."""
+    data = pathlib.Path(path).read_bytes()
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data)
+    if data.startswith(b"BM"):
+        return decode_bmp(data)
+    for magic, name in ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"II*\x00", "TIFF"),
+                        (b"MM\x00*", "TIFF"), (b"RIFF", "WebP")):
+        if data.startswith(magic):
+            raise ValueError(f"unsupported image format {name} in {path} (PNG and BMP are read)")
+    raise ValueError(f"unknown image format in {path} (PNG and BMP are read)")
 
 
 def _chunk(ctype: bytes, payload: bytes) -> bytes:
