@@ -19,15 +19,17 @@ CLI, on the card::
     python -m tod_tpu_torch.bench.profiling --qvga-serve [--plan]  # the QVGA serve step
     python -m tod_tpu_torch.bench.profiling --train            # the batch-8 QVGA train step
 
-``--train`` splits the train step into its phases (``PHASES``): the step
-synchronises the device as each phase ends (``make_train_step``'s ``mark``
-hook, used only here) and marks the profile there, so each device activity
-falls in the window of the phase that launched it.
+``--train`` splits the train step into its phases (``PHASES``) by the
+step's own ``train/<phase>`` spans, which open profiler ranges while a
+profiler runs: each device activity falls in the phase whose range was open
+when its launch started.  Nothing synchronises inside the step, so the
+split is of the step as it runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import re
 from collections import Counter, defaultdict
@@ -224,6 +226,7 @@ def profile_qvga_serve(plan: bool = False, device=None) -> dict:
 
 
 PHASES = ("augment", "forward", "loss", "backward", "optimizer")
+TRAIN_HW = (240, 320)  # bench config 11's size
 
 
 def by_category(own: Counter, ours: tuple[str, ...]) -> Counter:
@@ -232,18 +235,63 @@ def by_category(own: Counter, ours: tuple[str, ...]) -> Counter:
     for name, us in own.items():
         cats[category(name, ours)] += us
     return cats
-TRAIN_HW = (240, 320)  # bench config 11's size
+
+
+def phase_split(prof, device: torch.device, phases=PHASES) -> tuple[list, list]:
+    """The ``train/<phase>`` ranges of a profile, ``(start, end, phase)``
+    in ns, and the device's activities, ``(name, start, end, phase)``, each
+    in the phase whose range was open when its launch started (None
+    outside them).  By launch time, not by thread: the backward launches
+    from autograd's device thread while the main thread waits inside
+    ``train/backward``.  On the CPU the outermost aten ops stand in for the
+    activities, each launched at its own start."""
+    names = {f"train/{p}": p for p in phases}
+    ranges, launches, ops, cuda, aten = [], {}, {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        kind = str(e.device_type()).rsplit(".", 1)[-1]
+        name, start = e.name(), e.start_ns()
+        end = start + e.duration_ns()
+        if kind == "CPU":
+            if name in names:
+                ranges.append((start, end, names[name]))
+            elif name.startswith("aten::"):
+                aten.append((e.start_thread_id(), start, end, name))
+            if e.correlation_id():
+                # a runtime call (cudaLaunchKernel, cudaMemcpyAsync...) or the op
+                (launches if name.startswith("cu") else ops)[e.correlation_id()] = start
+        elif kind == "CUDA" and not e.is_user_annotation():
+            cuda.append((name, start, end, e.correlation_id(), e.linked_correlation_id()))
+    if device.type == "cuda":
+        if not cuda:
+            raise RuntimeError("the profile holds no CUDA activity: the profiler did not "
+                               "trace the card")
+        acts = [(name, start, end, launches.get(corr) or ops.get(linked))
+                for name, start, end, corr, linked in cuda]
+    else:
+        acts, open_until = [], {}
+        for thread, start, end, name in sorted(aten, key=lambda a: (a[0], a[1], -a[2])):
+            if start >= open_until.get(thread, start):
+                acts.append((name, start, end, start))
+                open_until[thread] = end
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+
+    def phase_at(t):
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        return ranges[i][2] if i >= 0 and ranges[i][1] >= t else None
+
+    return ranges, [(name, start, end, phase_at(t)) for name, start, end, t in acts]
 
 
 def profile_train_step(batch: int = 8, hw=TRAIN_HW, iters: int = ITERS, device=None) -> dict:
     """Trace ``iters`` train steps of the flagship at ``hw`` and batch
-    ``batch`` (synthetic data, seed 0) after a warm step, phase by phase:
-    each phase's device busy ms a step (the union of its activities), its
-    host ms (the phase's window, the synchronisation at its end included),
-    its share of the step's busy time, its activities and top kernels, and
-    the whole step's ``top_ops`` report."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    ``batch`` (synthetic data, seed 0) after a warm step, phase by phase
+    (``phase_split``: the step's own ``train/*`` spans, nothing
+    synchronised inside it): each phase's device busy ms a step (the union
+    of the activities it launched), its host ms, its share of the step's
+    busy time, its activities and top kernels, and the whole step's
+    ``top_ops`` report."""
+    from torch.profiler import ProfilerActivity, profile
 
     from tod_tpu_torch.bench.configs import device_info, sync
     from tod_tpu_torch.core.config import ModelConfig, TrainConfig
@@ -254,45 +302,35 @@ def profile_train_step(batch: int = 8, hw=TRAIN_HW, iters: int = ITERS, device=N
     dev = resolve_device(device)
     trainer = Trainer(ModelConfig(input_size=hw), TrainConfig(batch_size=batch), device=dev)
     b = device_batch(SyntheticDetectionData(hw, batch_size=batch, seed=0).next_batch(), dev)
-
-    def mark(phase: str) -> None:
-        sync(dev)
-        with record_function(f"mark/{phase}"):
-            pass
-
-    trainer.train_step(b, mark)  # warm: cuDNN plans
+    trainer.train_step(b)  # warm: cuDNN plans
+    sync(dev)
     card = dev.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
     with profile(activities=activities) as prof:
         for _ in range(iters):
-            mark("start")
-            trainer.train_step(b, mark)
-    events = list(prof.events())
-    marks = sorted((e.time_range.start, e.name[len("mark/"):]) for e in events
-                   if e.name.startswith("mark/") and e.device_type == DeviceType.CPU)
-    acts = _device_events(events, dev)
+            trainer.train_step(b)
+        sync(dev)
+    ranges, acts = phase_split(prof, dev)
     ours = our_kernels()
     busy, host, count = defaultdict(float), defaultdict(float), Counter()
     kernels: dict[str, Counter] = defaultdict(Counter)
-    for (t0, _), (t1, phase) in zip(marks, marks[1:]):
-        if phase == "start":
-            continue
-        host[phase] += t1 - t0
-        spans = sorted((e.time_range.start, e.time_range.end) for e in acts
-                       if t0 <= e.time_range.start < t1)
-        end = float("-inf")
-        for start, stop in spans:
-            busy[phase] += max(0.0, stop - max(start, end))
-            end = max(end, stop)
-        for e in acts:
-            if t0 <= e.time_range.start < t1:
-                count[phase] += 1
-                kernels[phase][e.name] += e.time_range.elapsed_us()
+    for start, end, phase in ranges:
+        host[phase] += end - start
+    for phase in PHASES:
+        mine = sorted((start, end) for _, start, end, p in acts if p == phase)
+        last = float("-inf")
+        for start, end in mine:
+            busy[phase] += max(0, end - max(start, last))
+            last = max(last, end)
+    for name, start, end, phase in acts:
+        if phase is not None:
+            count[phase] += 1
+            kernels[phase][name] += (end - start) / 1e3
     total = sum(busy.values())
     phases = {
         phase: {
-            "busy_ms": round(busy[phase] / 1e3 / iters, 4),
-            "host_ms": round(host[phase] / 1e3 / iters, 4),
+            "busy_ms": round(busy[phase] / 1e6 / iters, 4),
+            "host_ms": round(host[phase] / 1e6 / iters, 4),
             "share": round(busy[phase] / total, 4) if total else None,
             "activities": count[phase] // iters,
             "categories": {c: round(us / 1e3 / iters, 4)
@@ -304,7 +342,7 @@ def profile_train_step(batch: int = 8, hw=TRAIN_HW, iters: int = ITERS, device=N
     }
     report = top_ops(prof, dev, iters)
     name = f"train_step_b{batch}_{hw[0]}x{hw[1]}"
-    print_report(report, name.replace("_", " ") + " (synchronised at each phase)")
+    print_report(report, name.replace("_", " "))
     print("-- by phase (device busy ms, host ms a step, share of busy) --")
     for phase, row in phases.items():
         print(f"  {phase:10s} {row['busy_ms']:9.4f} {row['host_ms']:9.4f} {row['share']}  "

@@ -32,11 +32,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tod_tpu_torch.core.config import PipelineConfig
 from tod_tpu_torch.parallel.mesh import visible_devices
 from tod_tpu_torch.parallel.sharding import upload
+from tod_tpu_torch.runtime.profiler import span
 
 
 class TwoStagePipeline:
@@ -72,7 +72,7 @@ class TwoStagePipeline:
         """(H, W, 3) uint8 on the first device -> the head outputs."""
         from tod_tpu_torch.ops.preprocess import preprocess_frame
 
-        with record_function("stage/pipeline_1"):
+        with span("stage/pipeline_1"):
             return self.model(preprocess_frame(rgb, self.cfg.model.input_size, self.dtype))
 
     def hop(self, out):
@@ -94,7 +94,7 @@ class TwoStagePipeline:
         from tod_tpu_torch.models.yolact import detect
         from tod_tpu_torch.runtime.engine import height_and_balls, plan_device
 
-        with record_function("stage/pipeline_2"):
+        with span("stage/pipeline_2"):
             dets = detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
             plan, _ = plan_device(*height_and_balls(depth, dets, self.cfg), self.start_yx,
                                   self.cfg.planner)

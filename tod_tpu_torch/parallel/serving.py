@@ -18,12 +18,12 @@ from typing import Mapping
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tod_tpu_torch.core.config import PipelineConfig
 from tod_tpu_torch.core.types import Detections
 from tod_tpu_torch.parallel.mesh import Mesh
 from tod_tpu_torch.parallel.sharding import dp_devices, gather_tree, split_batch, tp_sharded
+from tod_tpu_torch.runtime.profiler import span
 
 
 class DPBatchServer:
@@ -70,7 +70,7 @@ class DPBatchServer:
         """Dispatch one dp-split batch; returns the device-resident
         ``Detections`` (nothing is read back)."""
         rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, np.uint8))
-        with torch.inference_mode(), record_function("stage/dp_serve"):
+        with torch.inference_mode(), span("stage/dp_serve"):
             outs = [self._serve_slice(piece, row)
                     for piece, row in zip(split_batch(rgb, self.devices), self.rows)]
             return gather_tree(outs, self.devices[0])

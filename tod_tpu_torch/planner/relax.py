@@ -12,13 +12,13 @@ buffer has the JAX layout: row 0 is ``(n_valid, truncated)``, rows 1.. the
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from tod_tpu_torch.kernels.connections import connection_planes
 from tod_tpu_torch.kernels.path_walk import walk_path
 from tod_tpu_torch.kernels.relax import bellman_ford_grid
 from tod_tpu_torch.ops.nms import top_k
 from tod_tpu_torch.planner.dijkstra import start_node_yx
+from tod_tpu_torch.runtime.profiler import span
 
 __all__ = ["bellman_ford_grid", "plan_on_device", "start_node_yx"]
 
@@ -46,11 +46,11 @@ def plan_on_device(height: torch.Tensor, balls: torch.Tensor, start_yx: tuple[in
     the relaxation's sweep count (a 0-dim int32 tensor), both on
     ``height``'s device.
     """
-    with record_function("stage/relaxation"):
+    with span("stage/relaxation"):
         height = height.to(torch.float32).contiguous()
         seeds = _seed_mask(balls, height.shape, max_seeds, min_pixels)
         conns = connection_planes(height)
         dist, next_dir, sweeps = bellman_ford_grid(height, conns, seeds, max_iters)
-    with record_function("stage/walk"):
+    with span("stage/walk"):
         plan = walk_path(dist, next_dir, start_yx, max_steps, signed)
     return plan, sweeps

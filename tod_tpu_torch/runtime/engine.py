@@ -55,7 +55,6 @@ from typing import Mapping
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tod_tpu_torch.core.config import PipelineConfig, validate
 from tod_tpu_torch.core.device import resolve_device
@@ -83,7 +82,7 @@ from tod_tpu_torch.planner.api import host_backend, materialize_path, plan_from_
 from tod_tpu_torch.planner.dijkstra import start_node_yx
 from tod_tpu_torch.planner.relax import plan_on_device
 from tod_tpu_torch.runtime.frame_source import SyntheticSource
-from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer
+from tod_tpu_torch.runtime.profiler import FPSMeter, StageTimer, span
 from tod_tpu_torch.track.tracker import init_tracks
 
 
@@ -226,22 +225,23 @@ class Engine:
     def _step(self, packed: torch.Tensor) -> tuple[torch.Tensor, Detections]:
         """Packed frame -> (depth (H, W) int32 mm, detections).
 
-        Each stage runs inside a ``stage/<name>`` profiler range, which a
-        profiler (``chip_smoke.py``) reads and which costs nothing without one.
+        Each stage runs inside a ``stage/<name>`` span (``runtime/profiler.py``):
+        a profiler range while a profiler is active (``chip_smoke.py`` reads
+        them), its host time in ``SPANS`` always.
         """
-        with record_function("stage/upload+preprocess"):
+        with span("stage/upload+preprocess"):
             rgb, depth = unpack_frame(packed.to(self.device, non_blocking=True), self.cam_hw)
             x = preprocess_frame(rgb, self.cfg.model.input_size, self.dtype)
-        with record_function("stage/forward"):
+        with span("stage/forward"):
             out = self.model(x)
         if self.mode == "semantic":
-            with record_function("stage/semantic"):
+            with span("stage/semantic"):
                 mcfg = self.cfg.model
                 cls_small = semantic_argmax(out.sem_logits[0], mcfg.meaningful_classes)
                 cls_map = upscale_to_frame(upsample_nearest(cls_small, 8), self.cam_hw)
                 ids = connected_components(cls_map == 3, max_labels=self.cfg.geometry.max_balls)
                 return depth, _empty_detections(mcfg, self.cam_hw, cls_map, ids)
-        with record_function("stage/detect"):
+        with span("stage/detect"):
             dets = _detect(out, self.cfg.model, self.anchors, out_hw=self.cam_hw)
         return depth, dets
 
@@ -249,7 +249,7 @@ class Engine:
     def serve_step_scene(self, packed: torch.Tensor):
         """Packed frame -> (height (H, W) f32, balls (max_balls, 4) f32)."""
         depth, dets = self._step(packed)
-        with record_function("stage/fusion"):
+        with span("stage/fusion"):
             return height_and_balls(depth, dets, self.cfg)
 
     @_serving
@@ -302,7 +302,7 @@ class Engine:
 
     def _track(self, tracks: torch.Tensor, balls: torch.Tensor) -> torch.Tensor:
         """The tracker kernel on one bank, in place -> the seed slots."""
-        with record_function("stage/track"):
+        with span("stage/track"):
             return track_banks(tracks, balls, self.cfg.tracker, self.cfg.geometry.max_balls)
 
     @_serving
@@ -326,7 +326,7 @@ class Engine:
         if not self._obstacle_mem_mode:
             raise ValueError("the memory step needs tracker.obstacle_memory > 0")
         depth, dets = self._step(packed)
-        with record_function("stage/fusion"):
+        with span("stage/fusion"):
             cam, geom = self.cfg.camera, self.cfg.geometry
             height, robots = occupancy_layers(depth, dets.class_map, cam, geom)
             balls = ball_centroids(depth, dets.class_map, dets.id_map, cam, geom)

@@ -36,6 +36,7 @@ import torch
 from tod_tpu_torch.core.config import ModelConfig, TrainConfig
 from tod_tpu_torch.core.device import resolve_device
 from tod_tpu_torch.ops.anchors import generate_anchors
+from tod_tpu_torch.runtime.profiler import SPANS, count, span
 from tod_tpu_torch.train.losses import yolact_loss
 
 CLIP_NORM = 10.0
@@ -158,9 +159,12 @@ def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig,
     """``step(batch, index, mark=None) -> metrics``: one optimizer step of
     ``model`` on ``batch`` (tensors on the model's device) as step number
     ``index``; ``metrics`` are 0-dim tensors (``loss``, ``cls``, ``box``,
-    ``mask``, ``sem``) of the loss before the update.  ``mark(phase)``, when
-    given, is called as each phase ends (``augment``, ``forward``,
-    ``loss``, ``backward``, ``optimizer``): the profiler's hook.
+    ``mask``, ``sem``) of the loss before the update.  Each phase runs in a
+    span (``runtime/profiler.py``): ``train/augment``, ``train/forward``,
+    ``train/loss``, ``train/backward`` (the main thread waits in
+    ``torch.autograd.grad`` while autograd's device thread launches the
+    backward), ``train/optimizer``.  ``mark(phase)``, when given, is called
+    as each phase ends, after its span.
 
     With ``layout`` (a ``parallel.sharding.SlotLayout``, the model sharded
     by ``parallel.sharding.shard_model``) ``batch`` is this slot's ``dp``
@@ -174,27 +178,32 @@ def make_train_step(model, anchors: torch.Tensor, opt: AdamW, tcfg: TrainConfig,
             return run(batch, index, mark or (lambda _: None))
 
     def run(batch: dict, index: int, mark) -> dict[str, torch.Tensor]:
-        if tcfg.device_augment:
-            img = batch["image"]
-            gen = step_generator(tcfg.seed, index, img.device)
-            n = img.shape[0] * (1 if layout is None else layout.dp)
-            draws = draw_augment(gen, n, tuple(img.shape[1:3]))
-            if layout is not None:
-                rows = layout.local_rows(n)
-                draws = {k: v[rows] for k, v in draws.items()}
-            batch = apply_augment(batch, draws)
-        imgs = (batch["image"].float() / 127.5 - 1.0).to(torch.bfloat16)
+        with span("train/augment"):
+            if tcfg.device_augment:
+                img = batch["image"]
+                gen = step_generator(tcfg.seed, index, img.device)
+                n = img.shape[0] * (1 if layout is None else layout.dp)
+                draws = draw_augment(gen, n, tuple(img.shape[1:3]))
+                if layout is not None:
+                    rows = layout.local_rows(n)
+                    draws = {k: v[rows] for k, v in draws.items()}
+                batch = apply_augment(batch, draws)
+            imgs = (batch["image"].float() / 127.5 - 1.0).to(torch.bfloat16)
         mark("augment")
-        out = model(imgs)
+        with span("train/forward"):
+            out = model(imgs)
         mark("forward")
-        total, comps = yolact_loss(out, anchors, batch, tcfg.loss_weights,
-                                   cls_loss=tcfg.cls_loss)
+        with span("train/loss"):
+            total, comps = yolact_loss(out, anchors, batch, tcfg.loss_weights,
+                                       cls_loss=tcfg.cls_loss)
         mark("loss")
-        grads = torch.autograd.grad(total, opt.params)
-        if layout is not None:
-            layout.mean_over_dp_(grads)
+        with span("train/backward"):
+            grads = torch.autograd.grad(total, opt.params)
+            if layout is not None:
+                layout.mean_over_dp_(grads)
         mark("backward")
-        opt.step(grads)
+        with span("train/optimizer"):
+            opt.step(grads)
         mark("optimizer")
         metrics = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
         return metrics if layout is None else layout.mean_metrics(metrics)
@@ -298,6 +307,23 @@ class Trainer:
         ``state_path`` with ``state_every > 0`` saves the full state every
         ``state_every`` steps (crash-safe).  Returns the last logged
         metrics (with ``eval_map50`` / ``eval_best_map50`` when evaluating).
+
+        Spans and counters (``runtime/profiler.py`` ``SPANS``, its
+        ``train/`` names cleared at entry, so that after a call they
+        describe its steps): ``train/step`` an iteration of the loop (a
+        chunk with ``chunk > 1``), ``train/batch`` its batch's staging
+        (``next_batch``, then ``device_batch`` pinning and enqueueing the
+        copy), ``train/log`` the loss's read-back on logging steps, the
+        step's phases (``make_train_step``); ``train/steps``,
+        ``train/h2d_bytes`` and, on the card, ``train/idle_at_batch`` /
+        ``train/idle_at_launch``: the iterations whose previous step had
+        already finished when the host came back for the batch / was about
+        to launch (one CUDA event a step, queried, never waited on).  The
+        ``train`` rows of ``metrics_path`` carry ``host_ms``, the median ms
+        of each ``train/*`` span so far, and ``idle_at_batch_share`` /
+        ``idle_at_launch_share``, those iterations' % (null off the card),
+        so that a team training on its own scenes sees whether its host
+        (near 100) or its card (near 0) sets the pace, with no profiler.
         """
         last: dict = {}
         t0 = time.perf_counter()
@@ -320,47 +346,79 @@ class Trainer:
 
             prefetcher = PrefetchChunks(data, chunk_schedule(steps, chunk))
             staged = iter(prefetcher)
-        done = 0
+        SPANS.reset("train/")
+        # recorded after each step; found complete when the host comes back
+        # for the next batch, it says the device drained its queue first
+        drained = stream = None
+        if self.device.type == "cuda":
+            drained, stream = torch.cuda.Event(), torch.cuda.current_stream(self.device)
+
+        def _pace(iterations: int) -> dict:
+            host = {k[len("train/"):]: v["p50_ms"] for k, v in SPANS.summary("train/").items()}
+            shares = {f"idle_at_{at}_share": None if drained is None else
+                      100.0 * SPANS.counter(f"train/idle_at_{at}") / iterations
+                      for at in ("batch", "launch")}
+            return {"host_ms": host, **shares}
+
+        done = iterations = 0
         try:
             while done < steps:
-                if chunk > 1:
-                    stacked = device_batch(self._local(next(staged), axis=1), self.device)
-                    n = stacked["image"].shape[0]
-                    metrics = self._chunk_step(stacked, self.step)
+                with span("train/step"):
+                    with span("train/batch"):
+                        waited = iterations > 0 and drained is not None
+                        idle = waited and drained.query()
+                        if chunk > 1:
+                            batch = device_batch(self._local(next(staged), axis=1), self.device)
+                        else:
+                            batch = device_batch(self._local(data.next_batch()), self.device)
+                        idle_at_launch = idle or (waited and drained.query())
+                    if idle:
+                        count("train/idle_at_batch")
+                    if idle_at_launch:
+                        count("train/idle_at_launch")
+                    count("train/h2d_bytes", sum(t.nbytes for t in batch.values()))
+                    if chunk > 1:
+                        n = batch["image"].shape[0]
+                        metrics = self._chunk_step(batch, self.step)
+                    else:
+                        n = 1
+                        metrics = self._step(batch, self.step)
+                    if drained is not None:
+                        drained.record(stream)
                     self.step += n
-                else:
-                    n = 1
-                    metrics = self._step(device_batch(self._local(data.next_batch()),
-                                                      self.device), self.step)
-                    self.step += 1
-                done += n
-                if done % log_every < n or done >= steps:
-                    last = {k: float(v) for k, v in metrics.items()}
-                    rate = done / (time.perf_counter() - t0)
-                    log_fn(f"step {self.step}: "
-                           + " ".join(f"{k}={v:.4f}" for k, v in last.items())
-                           + f" ({rate:.2f} steps/s)")
-                    _record("train", {**last, "steps_per_s": round(rate, 3)})
-                if state_path and state_every and (done % state_every < n and done < steps):
-                    self.save_state(state_path)
-                    _record("state", {"path": state_path})
-                if eval_every and (done % eval_every < n or done >= steps):
-                    ev = self.evaluate(n_scenes=eval_scenes, seed=eval_seed)
-                    m50 = ev.get("map50")
-                    # no detection above the score threshold (early training):
-                    # NaN, and never the best-checkpoint slot
-                    score = float("-inf") if m50 is None else float(m50)
-                    last["eval_map50"] = float("nan") if m50 is None else float(m50)
-                    if score > self._best_eval:
-                        self._best_eval = score
-                        if best_path is not None:
-                            self.save(best_path)
-                    best = None if self._best_eval == float("-inf") else self._best_eval
-                    last["eval_best_map50"] = float("nan") if best is None else best
-                    log_fn(f"eval @ step {self.step}: map50={m50} "
-                           f"recall50={ev['det_recall_iou50']} sem_iou={ev['sem_iou']} "
-                           f"best={best}")
-                    _record("eval", {**ev, "best_map50": best})
+                    done += n
+                    iterations += 1
+                    count("train/steps", n)
+                    if done % log_every < n or done >= steps:
+                        with span("train/log"):
+                            last = {k: float(v) for k, v in metrics.items()}
+                        rate = done / (time.perf_counter() - t0)
+                        log_fn(f"step {self.step}: "
+                               + " ".join(f"{k}={v:.4f}" for k, v in last.items())
+                               + f" ({rate:.2f} steps/s)")
+                        if mfile is not None:
+                            _record("train", {**last, "steps_per_s": round(rate, 3),
+                                              **_pace(iterations)})
+                    if state_path and state_every and (done % state_every < n and done < steps):
+                        self.save_state(state_path)
+                        _record("state", {"path": state_path})
+                    if eval_every and (done % eval_every < n or done >= steps):
+                        ev = self.evaluate(n_scenes=eval_scenes, seed=eval_seed)
+                        m50 = ev.get("map50")
+                        # no detection above the score threshold (early
+                        # training): NaN, and never the best-checkpoint slot
+                        score = float("-inf") if m50 is None else float(m50)
+                        last["eval_map50"] = float("nan") if m50 is None else float(m50)
+                        if score > self._best_eval:
+                            self._best_eval = score
+                            if best_path is not None:
+                                self.save(best_path)
+                        best = None if self._best_eval == float("-inf") else self._best_eval
+                        last["eval_best_map50"] = float("nan") if best is None else best
+                        log_fn(f"eval @ step {self.step}: map50={m50} "
+                               f"recall50={ev['det_recall_iou50']} sem_iou={ev['sem_iou']} "
+                               f"best={best}")
+                        _record("eval", {**ev, "best_map50": best})
         finally:
             if prefetcher is not None:
                 prefetcher.close()
