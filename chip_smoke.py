@@ -23,7 +23,12 @@ Phases, each printed as it ends:
    risky, twice in a row at its largest split, and past 2^24; and at the
    ResNet stem's 7x7 stride-2 site, (1 and 16, 3, 480, 640) -> 64 in bf16
    and f32, both quantize forms, its own row ``qconv_stem`` in the kernels
-   line), and its device time (CUDA
+   line; and the training BatchNorm pair at the 51 ConvBN sites of the
+   batch-16 480x640 step, channels last, forward and backward twice on the
+   same inputs to the same bits, y and the running statistics bit for bit
+   against ``plain_bn_act``, dx, dscale and dbias within stated tolerances,
+   the 51 sites timed as one call beside the plain graph and
+   ``F.batch_norm`` + ``hardtanh``), and its device time (CUDA
    events, median of 50 calls after a warm-up, enqueued behind a sleep
    kernel) beside the plain version's and a library call's; then the
    configurations past a kernel's limit (ROADMAP.md D5: K1's prototypes,
@@ -117,13 +122,16 @@ Phases, each printed as it ends:
 20. training (M14) of the default model at bench config 11's size (240x320,
    batch 8, ``TrainConfig(warmup_steps=2, total_steps=40)``): 20 steps on one
    synthetic batch (finite losses, the last below the first; one step under
-   the sync check), 8 steps with ``chunk=1`` against ``chunk=4`` and a
-   ``save_state`` / ``load_state`` resume at step 4 against 8 uninterrupted
-   steps (bit for bit, or the largest difference within twice the summed
-   learning rates), one ``Trainer.evaluate`` with plans (K1, K2, K4, the
-   relaxation, the walk and the cc kernel each launched), the trained
-   ``.npz`` served by ``tod_tpu_torch.app --checkpoint`` to a plan, and the
-   step's median time of 20 by CUDA events with its ``FlopCounterMode``
+   the sync check, with its 3 x 51 launches of the training BatchNorm
+   pair; one step of the ``s2d_stem`` and ``depthwise_shifted`` model,
+   whose NCHW sites ``ConvBN`` hands the pair in channels last, as many), 8
+   steps with ``chunk=1`` against ``chunk=4`` and a ``save_state`` /
+   ``load_state`` resume at step 4 against 8 uninterrupted steps (bit for
+   bit, or the largest difference within twice the summed learning rates),
+   one ``Trainer.evaluate`` with plans (K1, K2, K4, the relaxation, the walk
+   and the cc kernel each launched), the trained ``.npz`` served by
+   ``tod_tpu_torch.app --checkpoint`` to a plan, and the step's median time
+   of 20 by CUDA events with its ``FlopCounterMode``
    GFLOPs and ``mfu``;
 21. multi-GPU (M16) on the one card: ``DPBatchServer`` over a dp = 1 mesh
    at 320x240, batch 2, under the sync check, against the card's unsharded
@@ -221,7 +229,9 @@ def time_ms(fn, torch, n: int = 50, warmup: int = 5) -> tuple[float, float]:
     wall = 1e3 * (time.perf_counter() - t) / n
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(n)]
-    torch.cuda._sleep(200_000_000)  # ~0.1 s: longer than enqueueing n calls
+    # ~0.1 s, or half as long again as the n calls took with the device's
+    # time (2e6 cycles a ms): longer than enqueueing them
+    torch.cuda._sleep(max(200_000_000, int(3e6 * wall * n)))
     for start, stop in events:
         start.record()
         fn()
@@ -783,6 +793,158 @@ def check_k5(torch, np, rng, device):
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
         # its memset and its two kernels, the column maxima and the quantize pass
         "own": (lambda: quantize_tensor_pallas(xd, seed=7), K5_PARTS),
+    }
+
+
+# the training BatchNorm pair's three launches a site, forward then backward
+BN_PARTS = ("bn_apply_kernel", "bn_grad_stats_kernel", "bn_grad_apply_kernel")
+BN_BATCH, BN_HW = 16, (480, 640)  # the benchmark cell's step (mnv2_train.b16)
+
+
+def bn_sites(torch) -> list:
+    """((N, C, H, W), act) of each ConvBN site of the MobileNetV2 training
+    graph at batch 16, 480x640, in forward order: the conv outputs, traced
+    on the meta device."""
+    from tod_tpu_torch.models.conv import Training
+    from tod_tpu_torch.models.mobilenetv2 import ConvBN, MobileNetV2
+
+    net = MobileNetV2(quantized=Training(torch.bfloat16)).to("meta").eval()
+    sites = []
+    for m in net.modules():
+        if isinstance(m, ConvBN):
+            m.Conv_0.register_forward_hook(
+                lambda _m, _i, out, act=m.act: sites.append((tuple(out.shape), act)))
+    net(torch.empty(BN_BATCH, 3, *BN_HW, device="meta", dtype=torch.bfloat16))
+    return sites
+
+
+def bn_site_inputs(torch, gen, shape, device):
+    """x and dy in bf16, channels last (x with a spread and an offset a
+    channel), then the f32 scale, bias and running mean and var a trained
+    site might hold."""
+    n, c, h, w = shape
+
+    def u(lo, hi, size):
+        return torch.rand(size, generator=gen, device=device) * (hi - lo) + lo
+
+    x = torch.randn(shape, generator=gen, device=device) * u(0.1, 3, (1, c, 1, 1))
+    fmt = torch.channels_last
+    x = (x + u(-2, 2, (1, c, 1, 1))).to(torch.bfloat16).contiguous(memory_format=fmt)
+    dy = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    dy = dy.contiguous(memory_format=fmt)
+    return x, dy, u(0.5, 2.5, c), u(-1, 4, c), u(-1, 1, c), u(0.5, 2, c)
+
+
+def bn_run(torch, fn, x, dy, scale, bias, mean, var, act):
+    """``fn`` (``bn_act`` or ``plain_bn_act``) forward from copies of the
+    running statistics, then its backward from dy -> (y, dx, dscale, dbias,
+    mean, var)."""
+    xg = x.detach().requires_grad_(True)
+    sg, bg = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    m, v = mean.clone(), var.clone()
+    y = fn(xg, sg, bg, m, v, act)
+    return (y.detach(), *torch.autograd.grad(y, (xg, sg, bg), dy), m, v)
+
+
+def check_bn_train(torch, np, rng, device):
+    """The training BatchNorm pair (``csrc/bn_train.cu``) at every ConvBN
+    site of the batch-16 480x640 step, channels last (the layout ``ConvBN``
+    hands it), against ``plain_bn_act`` on the card, twice on the same
+    inputs (the same bits); then the 51 sites' forward and backward timed as
+    one call, beside the plain graph and the library's ``F.batch_norm`` +
+    ``hardtanh``."""
+    import hashlib
+
+    import torch.nn.functional as F
+
+    from tod_tpu_torch.kernels.bn_train import BN_EPS, BN_MOMENTUM, bn_act, plain_bn_act
+
+    sites = bn_sites(torch)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2**31)))
+    digest = hashlib.sha256()
+    names = ("y", "dx", "dscale", "dbias", "mean", "var")
+    worst = dict.fromkeys(names[1:4], 0.0)  # beyond the tolerance, over the largest
+    max_abs = dict.fromkeys(names, 0.0)  # |kernel - plain graph|
+    data = []
+    for i, (shape, act) in enumerate(sites):
+        args = bn_site_inputs(torch, gen, shape, device)
+        launches = bn_act.launches
+        runs = [bn_run(torch, bn_act, *args, act) for _ in range(2)]
+        torch.cuda.synchronize()
+        if bn_act.launches - launches != 6:
+            raise AssertionError(f"bn_train site {i}: {bn_act.launches - launches} launches for "
+                                 "two forwards and backwards, not 6")
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"bn_train site {i} {shape}: two runs on the same inputs differ")
+        for t in runs[0]:
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        want = bn_run(torch, plain_bn_act, *args, act)
+        got = runs[0]
+        for name, g, w in zip(names, got, want):
+            max_abs[name] = max(max_abs[name], float((g.double() - w.double()).abs().max()))
+        # y and the running statistics bit for bit: the kernel takes the
+        # batch's statistics from torch's reductions and rounds each step as
+        # the plain graph does.  dx: one bf16 step (2**-7 of the value)
+        # where the rounding flips and 2e-5 of the largest for the f32 sums
+        # taken in another order; dscale, dbias (sums over N * H * W, up to
+        # 1.2 M, in another order): 1e-4 of the largest.
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
+                and torch.equal(got[5], want[5])):
+            raise AssertionError(f"bn_train site {i} {shape} act={act}: y or the running "
+                                 "statistics differ from the plain graph's")
+        for name, g, w, rel, atol in (("dx", got[1], want[1], 2.0**-7, 2e-5),
+                                      ("dscale", got[2], want[2], 0.0, 1e-4),
+                                      ("dbias", got[3], want[3], 0.0, 1e-4)):
+            top = max(float(w.float().abs().max()), 1e-30)
+            over = (g.double() - w.double()).abs() - rel * w.double().abs()
+            if bool((over > atol * top).any()):
+                raise AssertionError(f"bn_train site {i} {shape} act={act}: {name} off the plain "
+                                     f"version at {int((over > atol * top).sum())} elements")
+            worst[name] = max(worst[name], float(over.max()) / top)
+        data.append((args, act))
+    log(f"  bn_train at the {len(sites)} ConvBN sites of the batch-{BN_BATCH} {BN_HW} step, "
+        f"channels last (forward and backward, bf16): two runs bitwise equal; largest "
+        f"|kernel - plain graph| {max_abs}; worst gap over the largest magnitude beyond one "
+        f"bf16 step {worst}; sha256 of the kernel's outputs {digest.hexdigest()[:16]}")
+
+    def step(fn):
+        def call():
+            for (x, dy, scale, bias, mean, var), act in data:
+                y = fn(x, scale, bias, mean, var, act)
+                torch.autograd.grad(y, (x, scale, bias), dy)
+        return call
+
+    def library(x, scale, bias, mean, var, act):
+        y = F.batch_norm(x, mean, var, scale, bias, True, 1 - BN_MOMENTUM, BN_EPS)
+        return F.hardtanh(y, 0.0, 6.0) if act else y
+
+    for (x, _, scale, bias, _, _), _ in data:
+        for t in (x, scale, bias):
+            t.requires_grad_(True)
+    kernel = step(bn_act)
+    ms, wall = time_ms(kernel, torch, n=10, warmup=2)
+    plain_ms, plain_wall = time_ms(step(plain_bn_act), torch, n=10, warmup=2)
+    library_ms, library_wall = time_ms(step(library), torch, n=10, warmup=2)
+    elems = sum(int(np.prod(shape)) for shape, _ in sites)
+    # bf16: the function (torch's statistics read x, the apply reads x and
+    # writes y, the backward reads x and dy twice and writes dx) 16 bytes an
+    # element; the three launches of its own 14 (no statistics read); ~30
+    # f32 operations each
+    bms, by = bound_ms(16.0 * elems, 30.0 * elems)
+    own_bms, _ = bound_ms(14.0 * elems, 30.0 * elems)
+    log(f"  bn_train times, the {len(sites)} sites forward and backward ({elems / 1e6:.1f} M "
+        f"elements): kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+        f"(F.batch_norm + hardtanh, not on the path) bound_ms={bms:.6f} ({by}, 16 bytes an "
+        f"element); the three launches' own time against {own_bms:.6f} ms (14 bytes an "
+        f"element); wall per call: kernel {wall:.3f} ms, plain {plain_wall:.3f} ms, library "
+        f"{library_wall:.3f} ms")
+    return {
+        "name": "bn_train", "route": "cuda", "source": "tod_tpu_torch/csrc/bn_train.cu",
+        "replaces": "none (XLA fuses tod_tpu's training BatchNorm, ReLU6 and cast)",
+        "max_abs_err": max(max_abs.values()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "own": (kernel, BN_PARTS),
     }
 
 
@@ -1555,12 +1717,14 @@ def train_path(torch, np, counters, root):
     """Phase 20: the default model trained at config 11's size (240x320,
     batch 8, ``TrainConfig(warmup_steps=2, total_steps=40)``) on the card."""
     import contextlib
+    import dataclasses
     import io
     import tempfile
 
     from tod_tpu_torch import app
     from tod_tpu_torch.bench.configs import _mfu, train_flops
     from tod_tpu_torch.core.config import ModelConfig, TrainConfig
+    from tod_tpu_torch.kernels.bn_train import bn_act
     from tod_tpu_torch.train import SyntheticDetectionData, Trainer
     from tod_tpu_torch.train.trainer import device_batch, learning_rate
 
@@ -1572,19 +1736,37 @@ def train_path(torch, np, counters, root):
     def trainer():
         return Trainer(mcfg, tcfg, device="cuda")
 
-    # 1. 20 steps on one fixed batch; one of them under the sync check
+    # 1. 20 steps on one fixed batch; one of them under the sync check, with
+    # the training BatchNorm pair's launches (three at each of 51 ConvBN sites)
     t = time.time()
     tr = trainer()
     fixed = device_batch(SyntheticDetectionData(TRAIN_HW, batch_size=TRAIN_BATCH,
                                                 seed=3).next_batch(), dev)
+    bn_launches = bn_act.launches
     first, enqueue_ms = sync_checked(torch, lambda: tr.train_step(fixed))
+    bn_launches = bn_act.launches - bn_launches
     losses = [first["loss"]] + [tr.train_step(fixed)["loss"] for _ in range(19)]
     losses = [float(v) for v in losses]
     log(f"  1. 20 steps on one batch: loss {[round(v, 4) for v in losses]}; one step under "
-        f"set_sync_debug_mode('error') enqueued in {enqueue_ms:.2f} ms, no host sync "
-        f"({time.time() - t:.1f}s)")
+        f"set_sync_debug_mode('error') enqueued in {enqueue_ms:.2f} ms, no host sync, "
+        f"{bn_launches} bn_train launches ({time.time() - t:.1f}s)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall over 20 steps on one batch: {losses}")
+    if bn_launches != 3 * 51:
+        raise AssertionError(f"a train step launched bn_train {bn_launches} times, not 3 x 51")
+    # the flagged forms compute NCHW at the stem and the shifted depthwise
+    # sites; ConvBN hands the pair every site in channels last
+    flagged = Trainer(dataclasses.replace(mcfg, s2d_stem=True, depthwise_shifted=True), tcfg,
+                      device="cuda")
+    launches = bn_act.launches
+    loss = float(flagged.train_step(fixed)["loss"])
+    launches = bn_act.launches - launches
+    log(f"  1b. one step of the s2d_stem + depthwise_shifted model: loss {loss:.4f}, "
+        f"{launches} bn_train launches")
+    if not np.isfinite(loss) or launches != 3 * 51:
+        raise AssertionError(f"the flagged model's step: loss {loss}, {launches} bn_train "
+                             "launches, not 3 x 51")
+    del flagged
 
     # 2. per step against chunk=4 over the same 8 batches
     src = SyntheticDetectionData(TRAIN_HW, batch_size=TRAIN_BATCH, seed=5)
@@ -1663,7 +1845,7 @@ def train_path(torch, np, counters, root):
         f"{step_ms:.3f} ms of 20 by CUDA events, {TRAIN_BATCH / step_ms * 1e3:.1f} images/s, "
         f"{flops / 1e9:.2f} GFLOPs (FlopCounterMode, forward and backward), mfu {mfu} "
         f"(bf16 peak), {nvidia_smi_line()}")
-    return step_ms
+    return step_ms, bn_launches
 
 
 def resnet_path(torch, np, counters):
@@ -3663,7 +3845,8 @@ def main() -> int:
                check_relax(torch, np, rng, device), check_walk(torch, np, rng, device),
                *check_bump(torch, np, rng, device), check_k5(torch, np, rng, device),
                check_cc(torch, np, rng, device), check_track(torch, np, rng, device),
-               check_qconv(torch, np, rng, device), check_qconv_stem(torch, np, rng, device)]
+               check_qconv(torch, np, rng, device), check_qconv_stem(torch, np, rng, device),
+               check_bn_train(torch, np, rng, device)]
     log("  kernels: " + ", ".join(f"{k['name']} ok" for k in kernels))
     d5_refusals(torch)
 
@@ -3730,7 +3913,7 @@ def main() -> int:
 
     log("== 20. training (M14) at 240x320, batch 8, and what it trained served")
     t = time.time()
-    train_ms = train_path(torch, np, semantic, root)
+    train_ms, bn_launches = train_path(torch, np, semantic, root)
     log(f"  phase 20 took {time.time() - t:.1f}s")
 
     log("== 21. multi-GPU (M16) on one card: DP serving, the pipeline, the NCCL mesh, "
@@ -3759,6 +3942,7 @@ def main() -> int:
     launches["track"] = tracked_launches["track"]
     launches["qconv"] = int8_launches["qconv"]
     launches["qconv_stem"] = stem_launches
+    launches["bn_train"] = bn_launches  # a train step's, phase 20
     # the paths of phases 21, 22 and 23 keep their own counts, each read just
     # after its own reset, beside the kernel's count on its own path
     by_path = {**m16_launches, **sim_launches, **m17_launches}

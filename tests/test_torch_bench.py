@@ -456,6 +456,7 @@ class TestProfile:
         from tod_tpu_torch.bench.profiling import our_kernels
 
         assert set(our_kernels()) == {
+            "bn_apply_kernel", "bn_grad_apply_kernel", "bn_grad_stats_kernel",
             "bump_kernel", "bump_memo_kernel", "cc_border_kernel", "cc_flatten_kernel",
             "cc_local_kernel", "connections_kernel", "mask_assembly_kernel",
             "path_walk_kernel", "qconv_depthwise_kernel", "qconv_wgmma_kernel",

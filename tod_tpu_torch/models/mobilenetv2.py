@@ -4,7 +4,10 @@ folded into each conv's weight and bias; with ``quantized`` each conv is a
 ``QConv`` that adds that bias as the folded BatchNorm does.  Built for
 training (a ``models.conv.Training`` mode), each ConvBN is the JAX training
 graph's: a conv with no bias, ``BatchNorm_0`` in f32 on batch statistics,
-ReLU6, then the compute dtype.
+ReLU6, then the compute dtype; in training mode the three after the conv
+are ``kernels/bn_train.bn_act`` on the conv's output in channels last (one
+kernel pair on the card; the plain graph on the CPU, or over a dp mesh,
+``moments_over`` set, on the global batch's moments).
 
 ``dw_shifted`` and ``s2d_stem`` (``ModelConfig.depthwise_shifted`` and
 ``s2d_stem``) route the sites as the JAX ``ConvBN`` does: the
@@ -19,10 +22,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from tod_tpu_torch.kernels.bn_train import bn_act, relu6
 from tod_tpu_torch.models.conv import Training
 from tod_tpu_torch.models.qconv import make_conv
 from tod_tpu_torch.models.resnet import TrainBatchNorm
 from tod_tpu_torch.ops.depthwise import shifted_wins
+from tod_tpu_torch.runtime.profiler import count
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -30,12 +35,6 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
-
-
-def relu6(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.relu6``, whose gradient is 0 at 0 and at 6 (``clamp``'s is 1
-    there: a channel that BatchNorm maps to exactly 0 would pass it on)."""
-    return torch.where((x > 0) & (x < 6), x, x.detach().clamp(0.0, 6.0))
 
 
 class ConvBN(nn.Module):
@@ -60,10 +59,17 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Conv_0(x)
-        if self.train_form:
-            y = self.BatchNorm_0(x)
+        if not self.train_form:
+            return x.clamp(0.0, 6.0) if self.act else x
+        bn = self.BatchNorm_0
+        if not bn.training:
+            y = bn(x)  # on the running statistics
             return (relu6(y) if self.act else y).to(x.dtype)
-        return x.clamp(0.0, 6.0) if self.act else x
+        count("train/bn_sites")
+        # channels last, as the NHWC input gives it, at every site: the
+        # s2d stem, the shifted depthwise and a tp gather give NCHW
+        x = x.contiguous(memory_format=torch.channels_last)
+        return bn_act(x, bn.scale, bn.bias, bn.mean, bn.var, self.act, bn.moments_over)
 
 
 class InvertedResidual(nn.Module):

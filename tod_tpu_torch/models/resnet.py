@@ -22,12 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tod_tpu_torch.kernels.bn_train import BN_EPS, batch_norm_train
 from tod_tpu_torch.models.conv import Training
 from tod_tpu_torch.models.qconv import make_conv
 from tod_tpu_torch.ops.padding import same_pads
-
-BN_EPS = 1e-5  # Flax nn.BatchNorm's epsilon
-BN_MOMENTUM = 0.97  # the JAX models' nn.BatchNorm(momentum=0.97)
 
 
 class BatchNorm(nn.Module):
@@ -70,18 +68,7 @@ class TrainBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
-        if self.moments_over is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            sq = (xf * xf).mean(dim=(0, 2, 3))
-        else:
-            mean, sq = self.moments_over(xf)
-        var = (sq - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
-            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
-        mul = torch.rsqrt(var + BN_EPS) * self.scale
-        return (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return batch_norm_train(x, self.scale, self.bias, self.mean, self.var, self.moments_over)
 
 
 def block_conv(mode, cin: int, cout: int, k: int, stride: int = 1):
